@@ -1,0 +1,114 @@
+"""GeneratorBE — the parameterized field decoder (arch "de"), 2D.
+
+Counterpart of :mod:`deepfluids_tpu.models.generator`: a BEGAN-style decoder
+from a parameter vector to a stream function,
+
+    p -> fc_in -> reshape to the coarse grid [H0, W0, filters]
+      -> repeat x { num_conv 3x3 convs (leaky ReLU) + skip from the stage
+                    input + 2x nearest upsample (except the last stage) }
+      -> conv_out 3x3 to out_channels (no activation), cast to float32.
+
+The curl that turns psi into velocity is applied outside the network
+(:func:`deepfluids_tpu_torch.train.losses.apply_curl`).
+
+Submodules carry the Flax names (``fc_in``, ``conv_{stage}_{c}``,
+``conv_out``) so :mod:`.weights` maps one onto the other by name.  Dtypes
+follow Flax's ``nn.Dense/nn.Conv(dtype=...)``: parameters stay float32 and
+each layer casts its input, kernel and bias to ``compute_dtype``.  Inside,
+activations are NCHW; ``fc_in``'s output is viewed channels-last
+``(B, H0, W0, F)`` first, as Flax reshapes it, so the weights need no row
+permutation.  Stride-1 3x3 ``'SAME'`` convolution is ``padding=1``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+ACT_SLOPE = 0.2   # leaky ReLU slope (the JAX module's act_slope default)
+
+
+def default_repeat(output_shape: Sequence[int]) -> int:
+    """Number of conv stages for an output shape (spatial dims + channel):
+    ``log2(max spatial extent) - 2`` (128x96 -> 5 stages, coarse 8x6)."""
+    return int(math.log2(max(output_shape[:-1]))) - 2
+
+
+def upscale_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsampling of an NCHW tensor: every cell repeated
+    ``factor`` times along each spatial axis."""
+    for dim in range(2, x.dim()):
+        x = x.repeat_interleave(factor, dim=dim)
+    return x
+
+
+class GeneratorBE(nn.Module):
+    """Parameter vector ``[B, num_param]`` -> field ``[B, H, W, C]`` (f32).
+
+    Args:
+      output_shape: ``(H, W, out_channels)``, e.g. ``(128, 96, 1)``.
+      num_param: length of the input vector (Flax infers it at init).
+      filters, num_conv, repeat: as in the JAX module; ``repeat=0``
+        derives it with :func:`default_repeat`.
+      compute_dtype: dtype every layer computes in (float32 or bfloat16).
+
+    The JAX module's beyond-reference knobs (Fourier embedding, spectral
+    layers, the grid decoder, spatial sharding) are not ported; the trainer
+    refuses a config that sets them.
+    """
+
+    def __init__(self, output_shape: Sequence[int] = (128, 96, 1),
+                 num_param: int = 3, filters: int = 128, num_conv: int = 4,
+                 repeat: int = 0, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if len(output_shape) != 3:
+            raise NotImplementedError(
+                f"GeneratorBE output_shape {tuple(output_shape)}: only 2D "
+                "(H, W, C) is ported; 3D is ROADMAP Queue A item 6")
+        self.output_shape = tuple(int(s) for s in output_shape)
+        self.filters = filters
+        self.num_conv = num_conv
+        self.repeat = repeat or default_repeat(self.output_shape)
+        self.compute_dtype = compute_dtype
+        spatial = self.output_shape[:-1]
+        scale = 2 ** (self.repeat - 1)
+        self.coarse = tuple(s // scale for s in spatial)
+        if any(c * scale != s for c, s in zip(self.coarse, spatial)):
+            raise ValueError(f"spatial dims {spatial} must be divisible by "
+                             f"2**(repeat-1)={scale}")
+
+        self.fc_in = nn.Linear(num_param, math.prod(self.coarse) * filters)
+        for stage in range(self.repeat):
+            for c in range(num_conv):
+                self.add_module(f"conv_{stage}_{c}",
+                                nn.Conv2d(filters, filters, 3, padding=1))
+        self.conv_out = nn.Conv2d(filters, self.output_shape[-1], 3,
+                                  padding=1)
+
+    def _conv(self, layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv2d(x, layer.weight.to(dt), layer.bias.to(dt),
+                        padding=1)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x = F.linear(z.to(dt), self.fc_in.weight.to(dt),
+                     self.fc_in.bias.to(dt))
+        x = x.view(-1, *self.coarse, self.filters).permute(0, 3, 1, 2)
+        x0 = x
+        for stage in range(self.repeat):
+            for c in range(self.num_conv):
+                x = F.leaky_relu(
+                    self._conv(getattr(self, f"conv_{stage}_{c}"), x),
+                    ACT_SLOPE)
+            if stage < self.repeat - 1:
+                x = upscale_nearest(x + x0, 2)
+                x0 = x
+            else:
+                x = x + x0
+        out = self._conv(self.conv_out, x)
+        return out.permute(0, 2, 3, 1).float()

@@ -1,0 +1,80 @@
+"""Flax parameters -> this port's ``state_dict``.
+
+Takes the flat ``{"<module>/<kernel|bias>": array}`` form of
+``tools/weights_io.flatten_params`` (or an ``.npz`` of it, as
+``weights_io.export_npz`` writes) and converts it by name:
+
+  * Dense kernel ``(in, out)`` -> Linear weight ``(out, in)``;
+  * Conv kernel HWIO -> Conv weight OIHW;
+  * biases as they are.
+
+Like ``weights_io.import_npz(mode="exact")`` it raises on a missing, extra
+or mis-shaped tensor, so a transposed kernel cannot load silently.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _flax_key(torch_key: str) -> str:
+    module, leaf = torch_key.rsplit(".", 1)
+    leaf = "kernel" if leaf == "weight" else "bias"
+    return f"{module.replace('.', '/')}/{leaf}"
+
+
+def _to_torch_layout(arr: np.ndarray) -> np.ndarray:
+    if arr.ndim == 2:      # Dense (in, out) -> (out, in)
+        return arr.T
+    if arr.ndim == 4:      # Conv HWIO -> OIHW
+        return arr.transpose(3, 2, 0, 1)
+    return arr
+
+
+def flax_shapes(model: nn.Module) -> dict[str, tuple[int, ...]]:
+    """The flat Flax keys and shapes ``model`` expects, in module order."""
+    out = {}
+    for key, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        if t.dim() == 2:
+            shape = shape[::-1]
+        elif t.dim() == 4:
+            o, i, h, w = shape
+            shape = (h, w, i, o)
+        out[_flax_key(key)] = shape
+    return out
+
+
+def flax_to_state_dict(flat: Mapping[str, np.ndarray],
+                       model: nn.Module) -> dict[str, torch.Tensor]:
+    """Convert flat Flax params to ``model``'s state_dict (float32)."""
+    want = flax_shapes(model)
+    missing = sorted(set(want) - set(flat))
+    if missing:
+        raise KeyError(f"Flax params miss {len(missing)} tensors, e.g. "
+                       f"{missing[:3]}")
+    extra = sorted(set(flat) - set(want))
+    if extra:
+        raise KeyError(f"Flax params have {len(extra)} tensors the model "
+                       f"lacks, e.g. {extra[:3]}")
+    bad = [(k, tuple(np.shape(flat[k])), s) for k, s in want.items()
+           if tuple(np.shape(flat[k])) != s]
+    if bad:
+        k, got, shape = bad[0]
+        raise ValueError(f"{len(bad)} shape mismatches, e.g. {k}: got "
+                         f"{got}, model wants {shape} (Flax layout)")
+    return {key: torch.from_numpy(np.array(_to_torch_layout(
+                np.asarray(flat[_flax_key(key)], np.float32)), order="C"))
+            for key in model.state_dict()}
+
+
+def load_flax_npz(path: str, model: nn.Module) -> nn.Module:
+    """Load a ``weights_io.export_npz`` file into ``model`` in place."""
+    with np.load(path) as d:
+        flat = {k: d[k] for k in d.files}
+    model.load_state_dict(flax_to_state_dict(flat, model))
+    return model
