@@ -6,10 +6,12 @@ and names so each module's counterpart is easy to find:
 - ``ops``      — finite-difference core: plain-torch ``fd`` (the CPU path and
                  the reference every kernel is held against) and
                  ``cuda_fd``, wrappers around the hand-written Hopper
-                 kernels in ``csrc/``.
-- ``models``   — the ``GeneratorBE`` decoder and the Flax -> torch weight
-                 converter.
-- ``train``    — ``apply_curl`` and the serving subset of ``Trainer``.
+                 kernels in ``csrc/`` and the autograd Functions that join
+                 each forward kernel to its transpose.
+- ``models``   — the ``GeneratorBE`` decoder, Flax's init, and the
+                 Flax <-> torch weight converter.
+- ``train``    — the ``de`` loss, Adam with the cosine schedule, and the
+                 ``Trainer`` that trains, checkpoints and serves.
 - ``infer``    — parameter-grid sweeps writing the ``.npz``/PNG/GIF
                  artifacts.
 - ``utils``    — numpy-only parity metric, image writers and logger.

@@ -38,6 +38,38 @@ def default_repeat(output_shape: Sequence[int]) -> int:
     return int(math.log2(max(output_shape[:-1]))) - 2
 
 
+@torch.no_grad()
+def flax_init_(model: nn.Module, seed: int) -> nn.Module:
+    """Flax's default init, in place: every Linear/Conv weight from
+    ``lecun_normal`` and every bias zero.
+
+    ``lecun_normal`` is ``variance_scaling(1.0, "fan_in",
+    "truncated_normal")``: a normal truncated at +-2 sigma, with sigma
+    ``1 / sqrt(fan_in) / 0.8796...`` so that the truncated variance is
+    ``1 / fan_in`` (fan_in = kh * kw * in for a conv, in for a Linear).
+    Drawn on the CPU from a ``torch.Generator`` seeded with ``seed``, in
+    module order, so the weights are the same on any device; they are not
+    JAX's numbers (another generator), only its distribution.
+    """
+    gen = torch.Generator().manual_seed(seed)
+    # The std of a unit normal truncated to [-2, 2] (jax.nn.initializers).
+    trunc_std = 0.87962566103423978
+    lo, hi = (math.erf(b / math.sqrt(2.0)) for b in (-2.0, 2.0))
+    for module in model.modules():
+        if not isinstance(module, (nn.Linear, nn.Conv2d)):
+            continue
+        w = module.weight
+        fan_in = w[0].numel()      # (out, in) or (out, in, kh, kw)
+        sigma = 1.0 / math.sqrt(fan_in) / trunc_std
+        # Inverse-CDF sampling of the truncated normal.
+        u = torch.empty(w.shape, dtype=torch.float64).uniform_(
+            lo, hi, generator=gen)
+        draw = torch.erfinv(u) * math.sqrt(2.0)
+        w.copy_((draw.clamp_(-2.0, 2.0) * sigma).to(w.dtype))
+        module.bias.zero_()
+    return model
+
+
 def upscale_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Nearest-neighbour upsampling of an NCHW tensor: every cell repeated
     ``factor`` times along each spatial axis."""

@@ -1,4 +1,4 @@
-"""Flax parameters -> this port's ``state_dict``.
+"""Flax parameters <-> this port's ``state_dict``.
 
 Takes the flat ``{"<module>/<kernel|bias>": array}`` form of
 ``tools/weights_io.flatten_params`` (or an ``.npz`` of it, as
@@ -10,10 +10,15 @@ Takes the flat ``{"<module>/<kernel|bias>": array}`` form of
 
 Like ``weights_io.import_npz(mode="exact")`` it raises on a missing, extra
 or mis-shaped tensor, so a transposed kernel cannot load silently.
+:func:`state_dict_to_flax` and :func:`save_flax_npz` go the other way, so a
+run the port trains writes a ``weights.npz`` that the port's serving path
+and ``weights_io.import_npz`` both read.
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
 from typing import Mapping
 
 import numpy as np
@@ -78,3 +83,35 @@ def load_flax_npz(path: str, model: nn.Module) -> nn.Module:
         flat = {k: d[k] for k in d.files}
     model.load_state_dict(flax_to_state_dict(flat, model))
     return model
+
+
+def _to_flax_layout(arr: np.ndarray) -> np.ndarray:
+    if arr.ndim == 2:      # Linear (out, in) -> Dense (in, out)
+        return arr.T
+    if arr.ndim == 4:      # Conv OIHW -> HWIO
+        return arr.transpose(2, 3, 1, 0)
+    return arr
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
+                       ) -> dict[str, np.ndarray]:
+    """The inverse of :func:`flax_to_state_dict`: a state_dict as flat Flax
+    params (float32 numpy, Flax layout, module order)."""
+    return {_flax_key(key): np.ascontiguousarray(_to_flax_layout(
+                t.detach().float().cpu().numpy()))
+            for key, t in state_dict.items()}
+
+
+def save_flax_npz(model: nn.Module, path: str) -> str:
+    """Write ``model``'s weights as a ``weights_io.export_npz`` file; the
+    file is replaced in one rename, so a reader never sees half of it."""
+    d = os.path.dirname(os.path.abspath(path))
+    fd, tmp = tempfile.mkstemp(suffix=".npz", dir=d)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez_compressed(f, **state_dict_to_flax(model.state_dict()))
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+    return path

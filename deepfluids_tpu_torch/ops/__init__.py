@@ -1,7 +1,12 @@
 """Differential-operator core: plain-torch ``fd`` and the kernel wrappers of
 ``cuda_fd`` behind the same names as :mod:`deepfluids_tpu.ops`."""
 
-from deepfluids_tpu_torch.ops.cuda_fd import curl2d_fused
+from deepfluids_tpu_torch.ops.cuda_fd import (
+    curl2d_fused,
+    curl2d_p,
+    jacobian2d_fused,
+    jacobian2d_p,
+)
 from deepfluids_tpu_torch.ops.fd import (
     curl2d,
     divergence2d,
@@ -15,4 +20,7 @@ __all__ = [
     "divergence2d",
     "vorticity2d",
     "curl2d_fused",
+    "jacobian2d_fused",
+    "curl2d_p",
+    "jacobian2d_p",
 ]

@@ -28,12 +28,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures of the entry points: name -> (restype, argtypes).  Pointers
-# and the stream are c_void_p; a plain int would cut them to 32 bits.
+# and the stream are c_void_p; a plain int would cut them to 32 bits.  After
+# the tensors, every entry point takes batch, H, W, dtype (0 f32 / 1 bf16),
+# device and stream.
+_TAIL = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_void_p]
 _SIGNATURES = {
-    # psi, out, batch, H, W, dtype (0 f32 / 1 bf16), device, stream
-    "df_curl2d": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    "df_curl2d": (ctypes.c_int, [ctypes.c_void_p] * 2 + _TAIL),  # psi, out
+    "df_jacobian2d": (ctypes.c_int,                      # vel, jac, vort
+                      [ctypes.c_void_p] * 3 + _TAIL),
+    "df_curl2d_bwd": (ctypes.c_int, [ctypes.c_void_p] * 2 + _TAIL),  # g, out
+    "df_jacobian2d_bwd": (ctypes.c_int,                  # gj, gw, out
+                          [ctypes.c_void_p] * 3 + _TAIL),
 }
 
 _lock = threading.Lock()

@@ -3,9 +3,17 @@
 Counterpart of :mod:`deepfluids_tpu.ops.pallas_fd`.  Each wrapper checks
 its input, then dispatches on the device the tensor lies on:
 
-  * a CPU tensor goes to the plain version in :mod:`.fd`;
+  * a CPU tensor goes to the kernel's plain version: the :mod:`.fd`
+    function on the input upcast to f32, each output rounded once to the
+    input dtype, which is the kernels' arithmetic;
   * a CUDA tensor launches the kernel from ``csrc/`` on the current stream,
     or raises.  There is no fallback to the plain version on the card.
+
+The forward kernels (``curl2d_fused``, ``jacobian2d_fused``) and their
+transposes (``curl2d_bwd``, ``jacobian2d_bwd``) are joined into the
+``torch.autograd.Function``s :func:`curl2d_p` and :func:`jacobian2d_p`,
+the counterparts of JAX's custom-VJP ``pallas_fd.curl2d_p`` /
+``jacobian2d_p``, which the training loss differentiates through.
 
 ``launch_counts`` counts kernel launches per wrapper (plain integers, only
 incremented where a kernel is launched), so a run can show that its path
@@ -14,11 +22,14 @@ went through the kernels.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from deepfluids_tpu_torch.ops import fd
 
-launch_counts: dict[str, int] = {"curl2d_fused": 0}
+launch_counts: dict[str, int] = {"curl2d_fused": 0, "jacobian2d_fused": 0,
+                                 "curl2d_bwd": 0, "jacobian2d_bwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -26,6 +37,58 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def _in_f32(fn: Callable, *xs: torch.Tensor):
+    """``fn`` on the inputs upcast to f32, each output rounded once to the
+    first input's dtype (a no-op pair of casts for f32 inputs)."""
+    dt = xs[0].dtype
+    out = fn(*(x.float() for x in xs))
+    if isinstance(out, tuple):
+        return tuple(o.to(dt) for o in out)
+    return out.to(dt)
+
+
+def _check(name: str, t: torch.Tensor, channels: int,
+           min_extent: int) -> None:
+    if t.dim() != 4 or t.shape[-1] != channels:
+        raise ValueError(f"{name} wants [B, H, W, {channels}], got "
+                         f"{tuple(t.shape)}")
+    h, w = t.shape[1:3]
+    if h < min_extent or w < min_extent:
+        raise ValueError(f"{name} needs H, W >= {min_extent}, got H={h} "
+                         f"W={w}")
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} wants a contiguous input")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, got {t.device}")
+
+
+def _launch(name: str, entry: str, ins: list[torch.Tensor],
+            out_channels: list[int]) -> list[torch.Tensor]:
+    """Launch ``entry`` on ``ins`` (CUDA, checked) into new channels-last
+    outputs of ``out_channels`` channels each; count the launch."""
+    from deepfluids_tpu_torch.ops._build import library
+
+    x = ins[0]
+    b, h, w, _ = x.shape
+    for t in ins:
+        # The kernels read each point's channels as one vector.
+        if t.data_ptr() % (t.shape[-1] * t.element_size()):
+            raise ValueError(f"{name}: input storage is not aligned to "
+                             f"{t.shape[-1]} channels")
+    outs = [torch.empty((b, h, w, c), dtype=x.dtype, device=x.device)
+            for c in out_channels]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = getattr(library(), entry)(
+        *(t.data_ptr() for t in ins + outs), b, h, w, _DTYPE_CODES[x.dtype],
+        x.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    launch_counts[name] += 1
+    return outs
 
 
 def curl2d_fused(psi: torch.Tensor) -> torch.Tensor:
@@ -37,38 +100,107 @@ def curl2d_fused(psi: torch.Tensor) -> torch.Tensor:
     Returns:
       ``[B, H, W, 2]`` velocity in the input dtype (f32 math).
 
-    Forward only: on the card, an input that requires grad under grad mode
-    raises (the backward kernel ``_curl2d_bwd`` is ROADMAP Queue B item 3).
+    Not differentiable by itself: :func:`curl2d_p` is.
     """
-    if psi.dim() != 4 or psi.shape[-1] != 1:
-        raise ValueError(f"curl2d_fused wants psi [B, H, W, 1], got "
-                         f"{tuple(psi.shape)}")
-    b, h, w, _ = psi.shape
-    if h < 2 or w < 2:
-        raise ValueError(f"curl2d_fused needs H, W >= 2, got H={h} W={w}")
-    if psi.dtype not in _DTYPE_CODES:
-        raise TypeError(f"curl2d_fused takes float32 or bfloat16, got "
-                        f"{psi.dtype}")
-    if not psi.is_contiguous():
-        raise ValueError("curl2d_fused wants a contiguous psi")
+    _check("curl2d_fused", psi, 1, 2)
     if psi.device.type == "cpu":
-        return fd.curl2d(psi)
-    if psi.device.type != "cuda":
-        raise ValueError(f"curl2d_fused runs on cpu or cuda, got "
-                         f"{psi.device}")
-    if psi.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "curl2d_fused is forward-only on CUDA: its backward kernel "
-            "(_curl2d_bwd) is ROADMAP Queue B item 3; call it under "
-            "torch.no_grad() / torch.inference_mode()")
-    from deepfluids_tpu_torch.ops._build import library
+        return _in_f32(fd.curl2d, psi)
+    return _launch("curl2d_fused", "df_curl2d", [psi], [2])[0]
 
-    out = torch.empty((b, h, w, 2), dtype=psi.dtype, device=psi.device)
-    stream = torch.cuda.current_stream(psi.device).cuda_stream
-    err = library().df_curl2d(psi.data_ptr(), out.data_ptr(), b, h, w,
-                              _DTYPE_CODES[psi.dtype], psi.device.index,
-                              stream)
-    if err != 0:
-        raise RuntimeError(f"curl2d kernel launch failed: cudaError {err}")
-    launch_counts["curl2d_fused"] += 1
-    return out
+
+def jacobian2d_fused(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel-backed :func:`deepfluids_tpu_torch.ops.fd.jacobian2d`.
+
+    Args:
+      x: ``[B, H, W, 2]`` contiguous velocity, float32 or bfloat16, with H
+        and W >= 2.
+    Returns:
+      ``(J [B, H, W, 4], vort [B, H, W, 1])`` in the input dtype; the
+      vorticity ``dvdx - dudy`` is taken in f32 and rounded once.
+    """
+    _check("jacobian2d_fused", x, 2, 2)
+    if x.device.type == "cpu":
+        return _in_f32(fd.jacobian2d, x)
+    j, vort = _launch("jacobian2d_fused", "df_jacobian2d", [x], [4, 1])
+    return j, vort
+
+
+def curl2d_bwd(g: torch.Tensor) -> torch.Tensor:
+    """Kernel-backed :func:`deepfluids_tpu_torch.ops.fd.curl2d_bwd`:
+    ``[B, H, W, 2]`` velocity cotangent -> ``[B, H, W, 1]``, H, W >= 3."""
+    _check("curl2d_bwd", g, 2, 3)
+    if g.device.type == "cpu":
+        return _in_f32(fd.curl2d_bwd, g)
+    return _launch("curl2d_bwd", "df_curl2d_bwd", [g], [1])[0]
+
+
+def jacobian2d_bwd(gj: torch.Tensor, gw: torch.Tensor) -> torch.Tensor:
+    """Kernel-backed :func:`deepfluids_tpu_torch.ops.fd.jacobian2d_bwd`:
+    cotangents ``J [B, H, W, 4]`` and ``vort [B, H, W, 1]`` ->
+    ``[B, H, W, 2]``, H, W >= 3."""
+    _check("jacobian2d_bwd", gj, 4, 3)
+    _check("jacobian2d_bwd", gw, 1, 3)
+    if (gw.shape[:3] != gj.shape[:3] or gw.dtype != gj.dtype
+            or gw.device != gj.device):
+        raise ValueError(f"jacobian2d_bwd: vort cotangent {tuple(gw.shape)} "
+                         f"{gw.dtype} {gw.device} does not match J's "
+                         f"{tuple(gj.shape)} {gj.dtype} {gj.device}")
+    if gj.device.type == "cpu":
+        return _in_f32(fd.jacobian2d_bwd, gj, gw)
+    return _launch("jacobian2d_bwd", "df_jacobian2d_bwd", [gj, gw], [2])[0]
+
+
+def _check_min3(x: torch.Tensor, name: str) -> None:
+    """The transposed stencils need every differenced extent >= 3: at 2 the
+    last-row rule overwrites the first-row one and the cotangent is wrong
+    (``pallas_fd._check_min3``)."""
+    spatial = tuple(x.shape[1:3])
+    if any(n < 3 for n in spatial):
+        raise ValueError(
+            f"{name}: spatial dims {spatial} must all be >= 3 (the "
+            f"transposed-stencil VJP is wrong at size 2; use the ops.fd "
+            f"oracle for degenerate grids)")
+
+
+class _Curl2d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, psi):
+        return curl2d_fused(psi)
+
+    @staticmethod
+    def backward(ctx, g):
+        return curl2d_bwd(g.contiguous())
+
+
+class _Jacobian2d(torch.autograd.Function):
+    # An unused output's cotangent arrives as zeros (materialized grads),
+    # as JAX passes them; the backward kernel takes any vort cotangent.
+    @staticmethod
+    def forward(ctx, x):
+        return jacobian2d_fused(x)
+
+    @staticmethod
+    def backward(ctx, gj, gw):
+        return jacobian2d_bwd(gj.contiguous(), gw.contiguous())
+
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+def curl2d_p(psi: torch.Tensor) -> torch.Tensor:
+    """Differentiable :func:`curl2d_fused`: forward ``curl2d_fused``,
+    backward ``curl2d_bwd``.  Raises ``ValueError`` when a gradient is
+    required and H or W < 3."""
+    if _needs_grad(psi):
+        _check_min3(psi, "curl2d_p")
+    return _Curl2d.apply(psi)
+
+
+def jacobian2d_p(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable :func:`jacobian2d_fused`: forward
+    ``jacobian2d_fused``, backward ``jacobian2d_bwd``.  Raises
+    ``ValueError`` when a gradient is required and H or W < 3."""
+    if _needs_grad(x):
+        _check_min3(x, "jacobian2d_p")
+    return _Jacobian2d.apply(x)

@@ -7,9 +7,13 @@ and the same channels-last layout ``[..., H, W, C]`` (H = y, W = x):
   * the lost last sample along the differenced axis is restored by edge
     replication of the final derivative, ``d[n-1] = d[n-2]``.
 
+The backward functions (:func:`fdt`, :func:`curl2d_bwd`,
+:func:`jacobian2d_bwd`) apply the TRANSPOSED stencil, as
+``pallas_fd._fdt`` does, and need every differenced extent >= 3.
+
 These functions are the CPU path of every kernel wrapper in
 :mod:`deepfluids_tpu_torch.ops.cuda_fd` and the reference the kernels are
-held against on the card.  They are differentiable by autograd.
+held against on the card.  The forward ones are differentiable by autograd.
 """
 
 from __future__ import annotations
@@ -21,6 +25,29 @@ def _fdiff(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Forward difference along ``dim``, keeping shape via edge replication."""
     d = torch.diff(x, dim=dim)
     return torch.cat([d, d.narrow(dim, d.shape[dim] - 1, 1)], dim=dim)
+
+
+def fdt(d: torch.Tensor, dim: int) -> torch.Tensor:
+    """Transpose of :func:`_fdiff` along ``dim`` (the cotangent of its input).
+
+    With n the extent of ``dim`` (n >= 3):
+
+      x[j]   = d[j-1] - d[j]              (interior)
+      x[0]   = -d[0]
+      x[n-2] = d[n-3] - d[n-2] - d[n-1]
+      x[n-1] = d[n-2] + d[n-1]
+    """
+    n = d.shape[dim]
+    if n < 3:
+        raise ValueError(f"fdt needs an extent >= 3 along dim {dim}, got {n}")
+
+    def at(j: int, length: int = 1) -> torch.Tensor:
+        return d.narrow(dim, j, length)
+
+    return torch.cat([-at(0),
+                      at(0, n - 3) - at(1, n - 3),
+                      at(n - 3) - at(n - 2) - at(n - 1),
+                      at(n - 2) + at(n - 1)], dim=dim)
 
 
 def curl2d(psi: torch.Tensor) -> torch.Tensor:
@@ -47,6 +74,26 @@ def jacobian2d(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     dvdx, dvdy = _fdiff(v, -1), _fdiff(v, -2)
     j = torch.stack([dudx, dudy, dvdx, dvdy], dim=-1)
     return j, (dvdx - dudy)[..., None]
+
+
+def curl2d_bwd(g: torch.Tensor) -> torch.Tensor:
+    """VJP of :func:`curl2d`: velocity cotangent ``[..., H, W, 2]`` ->
+    stream-function cotangent ``[..., H, W, 1]``,
+    ``psi_bar = fdt_y(u_bar) - fdt_x(v_bar)``."""
+    return (fdt(g[..., 0], -2) - fdt(g[..., 1], -1))[..., None]
+
+
+def jacobian2d_bwd(gj: torch.Tensor, gw: torch.Tensor) -> torch.Tensor:
+    """VJP of :func:`jacobian2d`: cotangents of J ``[..., H, W, 4]`` and of
+    the vorticity ``[..., H, W, 1]`` -> velocity cotangent ``[..., H, W, 2]``:
+
+      u_bar = fdt_x(J0) + fdt_y(J1) - fdt_y(w_bar)
+      v_bar = fdt_x(J2) + fdt_y(J3) + fdt_x(w_bar)
+    """
+    w = gw[..., 0]
+    u = fdt(gj[..., 0], -1) + fdt(gj[..., 1], -2) - fdt(w, -2)
+    v = fdt(gj[..., 2], -1) + fdt(gj[..., 3], -2) + fdt(w, -1)
+    return torch.stack([u, v], dim=-1)
 
 
 def vorticity2d(x: torch.Tensor) -> torch.Tensor:

@@ -1,2 +1,3 @@
-"""Serving subset of the JAX ``train`` package: ``apply_curl`` and the
-``Trainer`` that builds, loads and runs the arch "de" generator."""
+"""Training of arch "de" (the JAX ``train`` package's counterpart): the loss
+(``losses``), Adam with the cosine schedule (``state``) and the ``Trainer``
+that trains, checkpoints and serves the generator."""

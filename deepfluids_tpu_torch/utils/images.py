@@ -149,6 +149,21 @@ def save_field_image(path: str, field: np.ndarray,
     return _write(path, png_bytes(field_to_image(field, mode)))
 
 
+def save_image_grid(path: str, fields: Sequence[np.ndarray], ncol: int = 0,
+                    mode: str = "vorticity") -> str:
+    """Tile several fields into one PNG montage, each on its own colour
+    scale (the train-time sample dump)."""
+    imgs = [field_to_image(f, mode) for f in fields]
+    ncol = ncol or int(np.ceil(np.sqrt(len(imgs))))
+    nrow = -(-len(imgs) // ncol)
+    h, w, _ = imgs[0].shape
+    grid = np.zeros((nrow * h, ncol * w, 3), np.uint8)
+    for i, im in enumerate(imgs):
+        r, c = divmod(i, ncol)
+        grid[r * h:(r + 1) * h, c * w:(c + 1) * w] = im
+    return _write(path, png_bytes(grid))
+
+
 def save_gif(path: str, fields: Sequence[np.ndarray],
              mode: str = "vorticity") -> str:
     """Assemble a field sequence into a GIF with ONE colour scale over the

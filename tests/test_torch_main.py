@@ -105,7 +105,7 @@ def test_missing_weights_names_the_export(runs, tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"is_train": True}, "Queue A item 5"),
+    ({"is_train": True, "augment_flip_x": True}, "Queue A item 9"),
     ({"is_train": False, "arch": "ae"}, "Queue A item 7"),
     ({"is_train": False, "arch": "nn"}, "Queue A item 8"),
     ({"is_train": False, "decoder": "grid"}, "Queue A item 10"),
