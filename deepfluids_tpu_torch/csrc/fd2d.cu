@@ -14,8 +14,8 @@
 //   d/dx f[b,y,x] = f[b,y,x'+1] - f[b,y,x']      (same along y with H)
 //
 // so the last column (row) repeats the difference of the one before it.
-// The backward kernels apply the transposed stencil (fdt below), which is
-// valid for extents >= 3 only (checked by the Python wrappers).
+// The backward kernels apply the transposed stencil (fdt, fd_common.cuh),
+// which is valid for extents >= 3 only (checked by the Python wrappers).
 //
 // Layouts are channels-last and contiguous: psi [B,H,W,1], velocity
 // [B,H,W,2] with (u, v) interleaved, J [B,H,W,4] = (dudx, dudy, dvdx, dvdy),
@@ -33,21 +33,13 @@
 // edges with rolls and masks only because Mosaic cannot lower sub-tile
 // concatenates; none of that carries over.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "fd_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
 
 struct __align__(8) bf16x4 {
   __nv_bfloat162 lo, hi;
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // The two channels of point i of a [.., 2] tensor.
 __device__ __forceinline__ float2 load2(const float* p, long long i) {
@@ -66,14 +58,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p, long long i) {
   const float2 a = __bfloat1622float2(q.lo);
   const float2 b = __bfloat1622float2(q.hi);
   return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store1(float* p, long long i, float a) {
-  p[i] = a;
-}
-__device__ __forceinline__ void store1(__nv_bfloat16* p, long long i,
-                                       float a) {
-  p[i] = __float2bfloat16_rn(a);
 }
 
 __device__ __forceinline__ void store2(float* p, long long i, float a,
@@ -95,20 +79,6 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, long long i, float a,
   q.lo = __floats2bfloat162_rn(a, b);
   q.hi = __floats2bfloat162_rn(c, d);
   reinterpret_cast<bf16x4*>(p)[i] = q;
-}
-
-// Transpose of the edge-replicated forward difference at index j of an
-// extent n >= 3, from the cotangent at j-1, j and j+1 (pallas_fd.py:292-295):
-//   x[0] = -d[0];  x[j] = d[j-1] - d[j];
-//   x[n-2] = d[n-3] - d[n-2] - d[n-1];  x[n-1] = d[n-2] + d[n-1].
-// The operations run in the order of ops/fd.py fdt, so f32 results match it
-// bit for bit.
-__device__ __forceinline__ float fdt(float dm, float d0, float dp, int j,
-                                     int n) {
-  if (j == 0) return -d0;
-  if (j == n - 1) return dm + d0;
-  if (j == n - 2) return dm - d0 - dp;
-  return dm - d0;
 }
 
 // Point index i -> (x, y) and the flat indices of its neighbours.  At an

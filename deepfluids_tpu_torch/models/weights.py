@@ -5,7 +5,7 @@ Takes the flat ``{"<module>/<kernel|bias>": array}`` form of
 ``weights_io.export_npz`` writes) and converts it by name:
 
   * Dense kernel ``(in, out)`` -> Linear weight ``(out, in)``;
-  * Conv kernel HWIO -> Conv weight OIHW;
+  * Conv kernel HWIO -> Conv2d weight OIHW, DHWIO -> Conv3d weight OIDHW;
   * biases as they are.
 
 Like ``weights_io.import_npz(mode="exact")`` it raises on a missing, extra
@@ -37,6 +37,8 @@ def _to_torch_layout(arr: np.ndarray) -> np.ndarray:
         return arr.T
     if arr.ndim == 4:      # Conv HWIO -> OIHW
         return arr.transpose(3, 2, 0, 1)
+    if arr.ndim == 5:      # Conv DHWIO -> OIDHW
+        return arr.transpose(4, 3, 0, 1, 2)
     return arr
 
 
@@ -47,9 +49,8 @@ def flax_shapes(model: nn.Module) -> dict[str, tuple[int, ...]]:
         shape = tuple(t.shape)
         if t.dim() == 2:
             shape = shape[::-1]
-        elif t.dim() == 4:
-            o, i, h, w = shape
-            shape = (h, w, i, o)
+        elif t.dim() >= 4:     # (O, I, *kernel) -> (*kernel, I, O)
+            shape = shape[2:] + (shape[1], shape[0])
         out[_flax_key(key)] = shape
     return out
 
@@ -90,6 +91,8 @@ def _to_flax_layout(arr: np.ndarray) -> np.ndarray:
         return arr.T
     if arr.ndim == 4:      # Conv OIHW -> HWIO
         return arr.transpose(2, 3, 1, 0)
+    if arr.ndim == 5:      # Conv OIDHW -> DHWIO
+        return arr.transpose(2, 3, 4, 1, 0)
     return arr
 
 

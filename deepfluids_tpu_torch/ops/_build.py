@@ -1,12 +1,14 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, for ``sm_90a`` (Hopper).  The build happens at first use, never at
-import, into ``_build/<hash>/`` beside this package (listed in
-``.gitignore``).  The hash covers the sources and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  The library is loaded with
-``ctypes``; every entry point returns the ``cudaError_t`` of
-``cudaGetLastError()`` after its launch.
+``nvcc`` compiles every ``csrc/*.cu`` (with the ``*.cuh`` headers they
+include), one process per source in parallel, and links them into one
+shared library with a plain C interface, for ``sm_90a`` (Hopper).  The
+build happens at first use, never at import, into ``_build/<hash>/``
+beside this package (listed in ``.gitignore``).  The hash covers the
+sources, headers and flags, so an edited source is rebuilt and an
+unchanged one is reused.  The library is loaded with ``ctypes``; every
+entry point returns the ``cudaError_t`` of ``cudaGetLastError()`` after its
+launch.
 """
 
 from __future__ import annotations
@@ -25,21 +27,27 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
 LIB_NAME = "libdf_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures of the entry points: name -> (restype, argtypes).  Pointers
 # and the stream are c_void_p; a plain int would cut them to 32 bits.  After
-# the tensors, every entry point takes batch, H, W, dtype (0 f32 / 1 bf16),
-# device and stream.
-_TAIL = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p]
+# the tensors, every entry point takes batch, its spatial extents (H, W in
+# 2D; D, H, W in 3D), dtype (0 f32 / 1 bf16), device and stream.
+_TAIL2 = [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_TAIL3 = [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SIGNATURES = {
-    "df_curl2d": (ctypes.c_int, [ctypes.c_void_p] * 2 + _TAIL),  # psi, out
+    "df_curl2d": (ctypes.c_int, [ctypes.c_void_p] * 2 + _TAIL2),  # psi, out
     "df_jacobian2d": (ctypes.c_int,                      # vel, jac, vort
-                      [ctypes.c_void_p] * 3 + _TAIL),
-    "df_curl2d_bwd": (ctypes.c_int, [ctypes.c_void_p] * 2 + _TAIL),  # g, out
+                      [ctypes.c_void_p] * 3 + _TAIL2),
+    "df_curl2d_bwd": (ctypes.c_int, [ctypes.c_void_p] * 2 + _TAIL2),  # g, out
     "df_jacobian2d_bwd": (ctypes.c_int,                  # gj, gw, out
-                          [ctypes.c_void_p] * 3 + _TAIL),
+                          [ctypes.c_void_p] * 3 + _TAIL2),
+    "df_curl3d": (ctypes.c_int, [ctypes.c_void_p] * 2 + _TAIL3),  # psi, out
+    "df_jacobian3d": (ctypes.c_int,                      # vel, jac, vort
+                      [ctypes.c_void_p] * 3 + _TAIL3),
+    "df_curl3d_bwd": (ctypes.c_int, [ctypes.c_void_p] * 2 + _TAIL3),  # g, out
+    "df_jacobian3d_bwd": (ctypes.c_int,                  # gj, gv, out
+                          [ctypes.c_void_p] * 3 + _TAIL3),
 }
 
 _lock = threading.Lock()
@@ -64,9 +72,11 @@ def _sources() -> list[str]:
 
 
 def build_dir() -> str:
-    """``_build/<hash of sources and flags>`` for the current sources."""
+    """``_build/<hash of sources, headers and flags>`` for the current
+    sources."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(_sources()
+                      + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -76,26 +86,48 @@ def build_dir() -> str:
 def build() -> str:
     """Compile the library if this source hash has none yet; its path.
 
-    nvcc writes to a temporary name that is renamed into place, so a
-    concurrent process never loads a half-written library.  nvcc's own
-    report (``-Xptxas -v``: registers, shared memory, spills) is kept as
-    ``build.log`` beside the library."""
+    Each source is compiled to an object by its own nvcc, all started
+    together, then one nvcc links them.  Everything is written in a
+    temporary directory and the library renamed into place, so a concurrent
+    process never loads a half-written one.  nvcc's own report (``-Xptxas
+    -v``: registers, shared memory, spills) is kept as ``build.log`` beside
+    the library."""
     out_dir = build_dir()
     lib_path = os.path.join(out_dir, LIB_NAME)
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)
+    work = tempfile.mkdtemp(dir=out_dir)
+    try:
+        nvcc = find_nvcc()
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        link = [nvcc, "-shared", "-o", os.path.join(work, LIB_NAME),
+                *(obj for _, obj, _ in jobs)]
+        log = []
+        for cmd, _, proc in jobs:     # wait for every compile first
+            log.append((cmd, proc.communicate()[0], proc.returncode))
+        for cmd, out, rc in log:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n"
+                                   f"{out}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            for cmd, out, _ in log:
+                f.write(" ".join(cmd) + "\n" + out)
+            f.write(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        os.replace(os.path.join(work, LIB_NAME), lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib_path
 
 

@@ -9,11 +9,12 @@ its input, then dispatches on the device the tensor lies on:
   * a CUDA tensor launches the kernel from ``csrc/`` on the current stream,
     or raises.  There is no fallback to the plain version on the card.
 
-The forward kernels (``curl2d_fused``, ``jacobian2d_fused``) and their
-transposes (``curl2d_bwd``, ``jacobian2d_bwd``) are joined into the
-``torch.autograd.Function``s :func:`curl2d_p` and :func:`jacobian2d_p`,
-the counterparts of JAX's custom-VJP ``pallas_fd.curl2d_p`` /
-``jacobian2d_p``, which the training loss differentiates through.
+The forward kernels (``curl2d_fused``, ``jacobian2d_fused`` and the 3D
+``curl3d_fused``, ``jacobian3d_fused``) and their transposes (``*_bwd``)
+are joined into the ``torch.autograd.Function``s :func:`curl2d_p`,
+:func:`jacobian2d_p`, :func:`curl3d_p` and :func:`jacobian3d_p`, the
+counterparts of JAX's custom-VJP ``pallas_fd.curl2d_p`` etc., which the
+training loss differentiates through.
 
 ``launch_counts`` counts kernel launches per wrapper (plain integers, only
 incremented where a kernel is launched), so a run can show that its path
@@ -28,8 +29,10 @@ import torch
 
 from deepfluids_tpu_torch.ops import fd
 
-launch_counts: dict[str, int] = {"curl2d_fused": 0, "jacobian2d_fused": 0,
-                                 "curl2d_bwd": 0, "jacobian2d_bwd": 0}
+launch_counts: dict[str, int] = {
+    "curl2d_fused": 0, "jacobian2d_fused": 0, "curl2d_bwd": 0,
+    "jacobian2d_bwd": 0, "curl3d_fused": 0, "jacobian3d_fused": 0,
+    "curl3d_bwd": 0, "jacobian3d_bwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -49,15 +52,18 @@ def _in_f32(fn: Callable, *xs: torch.Tensor):
     return out.to(dt)
 
 
-def _check(name: str, t: torch.Tensor, channels: int,
-           min_extent: int) -> None:
-    if t.dim() != 4 or t.shape[-1] != channels:
-        raise ValueError(f"{name} wants [B, H, W, {channels}], got "
-                         f"{tuple(t.shape)}")
-    h, w = t.shape[1:3]
-    if h < min_extent or w < min_extent:
-        raise ValueError(f"{name} needs H, W >= {min_extent}, got H={h} "
-                         f"W={w}")
+def _check(name: str, t: torch.Tensor, channels: int, min_extent: int,
+           ndim: int = 2) -> None:
+    """``t`` must be ``[B, *spatial, channels]`` with ``ndim`` spatial dims
+    (2: H, W; 3: D, H, W), each >= ``min_extent``, contiguous f32/bf16."""
+    axes = "DHW"[3 - ndim:]
+    if t.dim() != ndim + 2 or t.shape[-1] != channels:
+        raise ValueError(f"{name} wants [B, {', '.join(axes)}, {channels}], "
+                         f"got {tuple(t.shape)}")
+    spatial = tuple(t.shape[1:-1])
+    if min(spatial) < min_extent:
+        raise ValueError(f"{name} needs {', '.join(axes)} >= {min_extent}, "
+                         f"got {dict(zip(axes, spatial))}")
     if t.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {t.dtype}")
     if not t.is_contiguous():
@@ -73,18 +79,19 @@ def _launch(name: str, entry: str, ins: list[torch.Tensor],
     from deepfluids_tpu_torch.ops._build import library
 
     x = ins[0]
-    b, h, w, _ = x.shape
     for t in ins:
-        # The kernels read each point's channels as one vector.
-        if t.data_ptr() % (t.shape[-1] * t.element_size()):
+        # The 2D kernels read each point's channels as one vector (float2,
+        # float4, ...); the 3D kernels read every channel on its own.
+        vector = t.shape[-1] if t.dim() == 4 else 1
+        if t.data_ptr() % (vector * t.element_size()):
             raise ValueError(f"{name}: input storage is not aligned to "
-                             f"{t.shape[-1]} channels")
-    outs = [torch.empty((b, h, w, c), dtype=x.dtype, device=x.device)
+                             f"{vector} channels")
+    outs = [torch.empty(x.shape[:-1] + (c,), dtype=x.dtype, device=x.device)
             for c in out_channels]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = getattr(library(), entry)(
-        *(t.data_ptr() for t in ins + outs), b, h, w, _DTYPE_CODES[x.dtype],
-        x.device.index, stream)
+        *(t.data_ptr() for t in ins + outs), *x.shape[:-1],
+        _DTYPE_CODES[x.dtype], x.device.index, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     launch_counts[name] += 1
@@ -140,21 +147,89 @@ def jacobian2d_bwd(gj: torch.Tensor, gw: torch.Tensor) -> torch.Tensor:
     ``[B, H, W, 2]``, H, W >= 3."""
     _check("jacobian2d_bwd", gj, 4, 3)
     _check("jacobian2d_bwd", gw, 1, 3)
-    if (gw.shape[:3] != gj.shape[:3] or gw.dtype != gj.dtype
-            or gw.device != gj.device):
-        raise ValueError(f"jacobian2d_bwd: vort cotangent {tuple(gw.shape)} "
-                         f"{gw.dtype} {gw.device} does not match J's "
-                         f"{tuple(gj.shape)} {gj.dtype} {gj.device}")
+    _check_pair("jacobian2d_bwd", gj, gw)
     if gj.device.type == "cpu":
         return _in_f32(fd.jacobian2d_bwd, gj, gw)
     return _launch("jacobian2d_bwd", "df_jacobian2d_bwd", [gj, gw], [2])[0]
+
+
+def _check_pair(name: str, gj: torch.Tensor, gv: torch.Tensor) -> None:
+    """The vorticity cotangent must match J's in points, dtype and device."""
+    if (gv.shape[:-1] != gj.shape[:-1] or gv.dtype != gj.dtype
+            or gv.device != gj.device):
+        raise ValueError(f"{name}: vort cotangent {tuple(gv.shape)} "
+                         f"{gv.dtype} {gv.device} does not match J's "
+                         f"{tuple(gj.shape)} {gj.dtype} {gj.device}")
+
+
+def curl3d_fused(psi: torch.Tensor) -> torch.Tensor:
+    """Kernel-backed :func:`deepfluids_tpu_torch.ops.fd.curl3d`.
+
+    Args:
+      psi: ``[B, D, H, W, 3]`` contiguous vector potential, float32 or
+        bfloat16, with D, H and W >= 2.
+    Returns:
+      ``[B, D, H, W, 3]`` velocity in the input dtype (f32 math).
+
+    Not differentiable by itself: :func:`curl3d_p` is.
+    """
+    _check("curl3d_fused", psi, 3, 2, ndim=3)
+    if psi.device.type == "cpu":
+        return _in_f32(fd.curl3d, psi)
+    return _launch("curl3d_fused", "df_curl3d", [psi], [3])[0]
+
+
+def jacobian3d_fused(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel-backed :func:`deepfluids_tpu_torch.ops.fd.jacobian3d`.
+
+    Args:
+      x: ``[B, D, H, W, 3]`` contiguous velocity, float32 or bfloat16, with
+        D, H and W >= 2.
+    Returns:
+      ``(J [B, D, H, W, 9], vort [B, D, H, W, 3])`` in the input dtype.  The
+      vorticity is taken from the f32 derivatives and rounded once, in the
+      kernel that writes J.  JAX's ``jacobian3d_fused`` subtracts the stored
+      J entries instead: the same in f32, up to a rounding of J in bf16.
+    """
+    _check("jacobian3d_fused", x, 3, 2, ndim=3)
+    if x.device.type == "cpu":
+        return _in_f32(fd.jacobian3d, x)
+    j, vort = _launch("jacobian3d_fused", "df_jacobian3d", [x], [9, 3])
+    return j, vort
+
+
+def curl3d_bwd(g: torch.Tensor) -> torch.Tensor:
+    """Kernel-backed :func:`deepfluids_tpu_torch.ops.fd.curl3d_bwd`:
+    ``[B, D, H, W, 3]`` velocity cotangent -> ``[B, D, H, W, 3]``, with D,
+    H, W >= 3."""
+    _check("curl3d_bwd", g, 3, 3, ndim=3)
+    if g.device.type == "cpu":
+        return _in_f32(fd.curl3d_bwd, g)
+    return _launch("curl3d_bwd", "df_curl3d_bwd", [g], [3])[0]
+
+
+def jacobian3d_bwd(gj: torch.Tensor, gv: torch.Tensor) -> torch.Tensor:
+    """Kernel-backed :func:`deepfluids_tpu_torch.ops.fd.jacobian3d_bwd`:
+    cotangents ``J [B, D, H, W, 9]`` and ``vort [B, D, H, W, 3]`` ->
+    ``[B, D, H, W, 3]``, with D, H, W >= 3.
+
+    The kernel folds the vorticity cotangent into J's at each point it
+    reads, in f32.  JAX adds it to ``gj`` before its kernel, in the
+    cotangents' dtype: the same in f32, one rounding more in bf16.
+    """
+    _check("jacobian3d_bwd", gj, 9, 3, ndim=3)
+    _check("jacobian3d_bwd", gv, 3, 3, ndim=3)
+    _check_pair("jacobian3d_bwd", gj, gv)
+    if gj.device.type == "cpu":
+        return _in_f32(fd.jacobian3d_bwd, gj, gv)
+    return _launch("jacobian3d_bwd", "df_jacobian3d_bwd", [gj, gv], [3])[0]
 
 
 def _check_min3(x: torch.Tensor, name: str) -> None:
     """The transposed stencils need every differenced extent >= 3: at 2 the
     last-row rule overwrites the first-row one and the cotangent is wrong
     (``pallas_fd._check_min3``)."""
-    spatial = tuple(x.shape[1:3])
+    spatial = tuple(x.shape[1:-1])
     if any(n < 3 for n in spatial):
         raise ValueError(
             f"{name}: spatial dims {spatial} must all be >= 3 (the "
@@ -184,6 +259,27 @@ class _Jacobian2d(torch.autograd.Function):
         return jacobian2d_bwd(gj.contiguous(), gw.contiguous())
 
 
+class _Curl3d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, psi):
+        return curl3d_fused(psi)
+
+    @staticmethod
+    def backward(ctx, g):
+        return curl3d_bwd(g.contiguous())
+
+
+class _Jacobian3d(torch.autograd.Function):
+    # As _Jacobian2d: an unused vorticity's cotangent arrives as zeros.
+    @staticmethod
+    def forward(ctx, x):
+        return jacobian3d_fused(x)
+
+    @staticmethod
+    def backward(ctx, gj, gv):
+        return jacobian3d_bwd(gj.contiguous(), gv.contiguous())
+
+
 def _needs_grad(x: torch.Tensor) -> bool:
     return x.requires_grad and torch.is_grad_enabled()
 
@@ -204,3 +300,21 @@ def jacobian2d_p(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if _needs_grad(x):
         _check_min3(x, "jacobian2d_p")
     return _Jacobian2d.apply(x)
+
+
+def curl3d_p(psi: torch.Tensor) -> torch.Tensor:
+    """Differentiable :func:`curl3d_fused`: forward ``curl3d_fused``,
+    backward ``curl3d_bwd``.  Raises ``ValueError`` when a gradient is
+    required and D, H or W < 3."""
+    if _needs_grad(psi):
+        _check_min3(psi, "curl3d_p")
+    return _Curl3d.apply(psi)
+
+
+def jacobian3d_p(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable :func:`jacobian3d_fused`: forward
+    ``jacobian3d_fused``, backward ``jacobian3d_bwd``.  Raises
+    ``ValueError`` when a gradient is required and D, H or W < 3."""
+    if _needs_grad(x):
+        _check_min3(x, "jacobian3d_p")
+    return _Jacobian3d.apply(x)

@@ -4,12 +4,14 @@
 
 with ``dist`` the mean absolute ("l1") or squared ("l2") error, optionally
 weighted per sample (``relative``).  The curl and the jacobian go through
-the differentiable kernel wrappers :func:`cuda_fd.curl2d_p` and
-:func:`cuda_fd.jacobian2d_p` (their plain versions for CPU tensors).  For
-scalar (levelset) fields the jacobian term is the spatial gradient of the
-scalar, in plain torch as in the JAX package.  3D is ROADMAP Queue A
-item 6; the JAX package's multi-chip ``_maybe_shard_batch`` is not ported
-(one card runs each kernel on the whole batch).
+the differentiable kernel wrappers :func:`cuda_fd.curl2d_p` /
+:func:`cuda_fd.jacobian2d_p` for 2D fields ``[B, H, W, C]`` and
+:func:`cuda_fd.curl3d_p` / :func:`cuda_fd.jacobian3d_p` for 3D fields
+``[B, D, H, W, C]`` (their plain versions for CPU tensors).  For scalar
+(levelset) fields the jacobian term is the spatial gradient of the scalar,
+in plain torch as in the JAX package.  The JAX package's multi-chip
+``_maybe_shard_batch`` is not ported (one card runs each kernel on the
+whole batch).
 """
 
 from __future__ import annotations
@@ -19,9 +21,6 @@ from typing import Callable
 import torch
 
 from deepfluids_tpu_torch.ops import cuda_fd, fd
-
-_NOT_3D = ("3D fields [B, D, H, W, C] are ROADMAP Queue A item 6 (with the "
-           "3D kernels, Queue B items 5-8)")
 
 
 def _dist(norm: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -51,16 +50,18 @@ def _grad_scalar(x: torch.Tensor) -> torch.Tensor:
 
 def jacobian_of(x: torch.Tensor) -> torch.Tensor:
     """First-derivative stack of a field: ``[B, H, W, 2]`` -> ``[B, H, W, 4]``
-    through :func:`cuda_fd.jacobian2d_p`; a scalar ``[..., 1]`` -> its
-    spatial gradient."""
+    through :func:`cuda_fd.jacobian2d_p`, ``[B, D, H, W, 3]`` ->
+    ``[B, D, H, W, 9]`` through :func:`cuda_fd.jacobian3d_p`; a scalar
+    ``[..., 1]`` -> its spatial gradient."""
     if x.shape[-1] == 1:
         return _grad_scalar(x)
+    # The generator's direct (use_curl False) output is a permuted view.
     if x.dim() == 4:
-        # The generator's direct (use_curl False) output is a permuted view.
         j, _ = cuda_fd.jacobian2d_p(x.contiguous())
         return j
     if x.dim() == 5:
-        raise NotImplementedError(_NOT_3D)
+        j, _ = cuda_fd.jacobian3d_p(x.contiguous())
+        return j
     raise ValueError(f"unsupported field shape {tuple(x.shape)}")
 
 
@@ -100,12 +101,14 @@ def field_loss(pred: torch.Tensor, target: torch.Tensor, w1: float,
 
 def apply_curl(out: torch.Tensor) -> torch.Tensor:
     """psi ``[B, H, W, 1]`` -> velocity ``[B, H, W, 2]`` through
-    :func:`cuda_fd.curl2d_p` (differentiable; its plain version for a CPU
-    tensor)."""
+    :func:`cuda_fd.curl2d_p`, Psi ``[B, D, H, W, 3]`` -> velocity
+    ``[B, D, H, W, 3]`` through :func:`cuda_fd.curl3d_p` (differentiable;
+    their plain versions for a CPU tensor)."""
     if out.dim() == 4:
         return cuda_fd.curl2d_p(out)
     if out.dim() == 5:
-        raise NotImplementedError(_NOT_3D)
+        # The generator's 3-channel output is a permuted view.
+        return cuda_fd.curl3d_p(out.contiguous())
     raise ValueError(f"unsupported potential shape {tuple(out.shape)}")
 
 

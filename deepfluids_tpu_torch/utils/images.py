@@ -1,8 +1,10 @@
 """Field visualization: vorticity PNGs and GIFs, numpy only.
 
-Counterpart of :mod:`deepfluids_tpu.utils.images` for the 2D renders the
-sweep writes, with the same diverging colormap and the same orientation
-(origin flipped so +y is up).  The JAX module writes through PIL and
+Counterpart of :mod:`deepfluids_tpu.utils.images` for the renders the
+sweep and the trainer write, with the same diverging colormap and the same
+orientation (origin flipped so +y is up).  A 3D field renders as its
+mid-depth slice, the JAX module's default ``projection="slice"`` (its
+``"max"`` projection is not ported).  The JAX module writes through PIL and
 imageio; here the PNG (zlib + CRC chunks) and the GIF (a fixed 252-colour
 palette, uncompressed LZW) are written with numpy and the standard library
 alone, so serving needs neither package.
@@ -45,13 +47,15 @@ def _np_vorticity2d(field: np.ndarray) -> np.ndarray:
 
 
 def _render_scalar(field: np.ndarray, mode: str) -> np.ndarray:
-    """The signed scalar [H, W] a 2D field renders as: its vorticity, or
-    its first channel (levelset / generic scalar)."""
+    """The signed scalar [H, W] a field renders as: the (mid-depth slice of
+    a 3D field's) vorticity of its first two channels, or its first
+    channel (levelset / generic scalar)."""
     field = np.asarray(field, np.float32)
+    if field.ndim == 4:      # [D, H, W, C] -> the mid-depth plane
+        field = field[field.shape[0] // 2]
     if field.ndim != 3:
-        raise NotImplementedError(
-            f"rendering a field of shape {field.shape}: only 2D [H, W, C] "
-            "is ported; 3D is ROADMAP Queue A item 6")
+        raise ValueError(f"cannot render a field of shape {field.shape}: "
+                         "want [H, W, C] or [D, H, W, C]")
     if mode == "vorticity" and field.shape[-1] >= 2:
         return _np_vorticity2d(field[..., :2])
     return field[..., 0]
@@ -59,8 +63,9 @@ def _render_scalar(field: np.ndarray, mode: str) -> np.ndarray:
 
 def field_to_image(field: np.ndarray, mode: str = "vorticity",
                    vmax: float | None = None) -> np.ndarray:
-    """Render one [H, W, C] field to an RGB uint8 image, +y up, on the
-    blue-white-red map scaled by ``vmax`` (default: the field's own max).
+    """Render one [H, W, C] field (or the mid-depth slice of a [D, H, W, C]
+    one) to an RGB uint8 image, +y up, on the blue-white-red map scaled by
+    ``vmax`` (default: the field's own max).
 
     mode: "vorticity" | "levelset" | "scalar"."""
     return _colorize_diverging(_render_scalar(field, mode), vmax)[::-1]

@@ -178,6 +178,120 @@ def test_train_step_launch_counts(cuda_device, tmp_path):
                         torch.from_numpy(y).to(cuda_device))
     torch.cuda.synchronize()
     assert np.isfinite(float(aux["loss"]))
-    assert cuda_fd.launch_counts == {"curl2d_fused": 1, "curl2d_bwd": 1,
+    zeros = dict.fromkeys(cuda_fd.launch_counts, 0)
+    assert cuda_fd.launch_counts == {**zeros,
+                                     "curl2d_fused": 1, "curl2d_bwd": 1,
                                      "jacobian2d_fused": 2,
                                      "jacobian2d_bwd": 1}
+
+
+# --- the 3D kernels: curl3d, jacobian3d and their transposes ---------------
+
+# config #5's grid at the training batch, odd extents, the smallest
+# backward grid, and (2, 2, 4, 5): below the backward kernels' minimum
+SHAPES_3D = [(8, 32, 64, 112), (1, 32, 64, 112), (2, 5, 6, 7), (1, 3, 3, 3),
+             (2, 2, 4, 5)]
+OPS_3D = {"curl3d_fused": (fd.curl3d, [3], 1e-6),
+          "jacobian3d_fused": (fd.jacobian3d, [3], 1e-6),
+          "curl3d_bwd": (fd.curl3d_bwd, [3], 1e-5),
+          "jacobian3d_bwd": (fd.jacobian3d_bwd, [9, 3], 1e-5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES_3D)
+@pytest.mark.parametrize("op", list(OPS_3D))
+def test_kernel_3d_matches_plain(cuda_device, op, shape, dtype):
+    plain, chans, tol = OPS_3D[op]
+    rng = np.random.default_rng(10)
+    xs = [torch.from_numpy(rng.standard_normal(shape + (c,)).astype(
+        np.float32)).to(cuda_device, dtype) for c in chans]
+    if op.endswith("_bwd") and min(shape[1:]) < 3:
+        with pytest.raises(ValueError):
+            getattr(cuda_fd, op)(*xs)
+        return
+    before = cuda_fd.launch_counts[op]
+    got = getattr(cuda_fd, op)(*xs)
+    torch.cuda.synchronize()
+    assert cuda_fd.launch_counts[op] == before + 1
+    want = plain(*(x.float() for x in xs))
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, wt in zip(got, want):
+        assert g.dtype == dtype and g.shape == wt.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, wt, atol=tol, rtol=0)
+        else:
+            err = (g.float() - wt.to(dtype).float()).abs()
+            assert bool((err <= BF16_ULP * wt.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 5, 6, 7), (8, 32, 64, 112)])
+def test_autograd_3d_matches_plain_autograd(cuda_device, shape):
+    rng = np.random.default_rng(11)
+
+    def rand(c):
+        return torch.from_numpy(rng.standard_normal(shape + (c,)).astype(
+            np.float32)).to(cuda_device)
+
+    psi, gu, x, gj, gv = rand(3), rand(3), rand(3), rand(9), rand(3)
+    for fn, plain, inp, cots in [
+            (cuda_fd.curl3d_p, fd.curl3d, psi, [gu]),
+            (cuda_fd.jacobian3d_p, fd.jacobian3d, x, [gj, gv])]:
+        a = inp.clone().requires_grad_()
+        b = inp.clone().requires_grad_()
+        outs = fn(a)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        torch.autograd.backward(list(outs), cots)
+        ref = plain(b)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.autograd.backward(list(ref), cots)
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_generator3d_golden_through_kernel(cuda_device):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = np.load(os.path.join(GOLDEN, "generator3d.npz"))
+    model = GeneratorBE((8, 16, 16, 3), num_param=3, filters=8, num_conv=2)
+    load_flax_npz(os.path.join(GOLDEN, "generator3d_params.npz"), model)
+    model.to(cuda_device)
+    before = cuda_fd.launch_counts["curl3d_fused"]
+    with torch.inference_mode():
+        u = apply_curl(model(torch.from_numpy(g["p"]).to(cuda_device)))
+    assert cuda_fd.launch_counts["curl3d_fused"] == before + 1
+    assert check_fields(u.cpu().numpy(), g["u"])["passed"]
+
+
+@pytest.mark.cuda
+def test_train_step_3d_launch_counts(cuda_device, tmp_path):
+    # One 3D Trainer step: curl3d 1, its backward 1, jacobian3d 2, the
+    # jacobian's backward 1, and no 2D kernel.
+    ds = tmp_path / "data" / "tiny3d"
+    save_manifest(Manifest(
+        param_names=["inflow_vel", "buoyancy", "frame"],
+        param_ranges=[[0.5, 1.5], [0.04, 0.12], [0.0, 3.0]],
+        num_scenes=2, num_frames=4, resolution=[8, 16, 16], num_channels=3,
+        v_range=[-1.0, 1.0], data_type="velocity"), str(ds))
+    os.makedirs(ds / "v")
+    rng = np.random.default_rng(12)
+    for k in range(8):
+        np.savez(ds / "v" / f"{k // 4}_0_{k % 4}.npz",
+                 x=rng.standard_normal((8, 16, 16, 3)).astype(np.float32),
+                 y=np.array([0.5 + k // 4, 0.04, k % 4], np.float32))
+    c = Config(data_dir=str(tmp_path / "data"), dataset="tiny3d", filters=8,
+               num_conv=1, batch_size=4, num_worker=1, log_dir=str(tmp_path))
+    t = Trainer(c, device=cuda_device)
+    x, y = t.bm.step_batch(1)
+    cuda_fd.reset_launch_counts()
+    aux = t._train_step(torch.from_numpy(x).to(cuda_device),
+                        torch.from_numpy(y).to(cuda_device))
+    torch.cuda.synchronize()
+    assert np.isfinite(float(aux["loss"]))
+    zeros = dict.fromkeys(cuda_fd.launch_counts, 0)
+    assert cuda_fd.launch_counts == {**zeros,
+                                     "curl3d_fused": 1, "curl3d_bwd": 1,
+                                     "jacobian3d_fused": 2,
+                                     "jacobian3d_bwd": 1}

@@ -110,8 +110,9 @@ def test_converter_rejects(fault, exc):
 
 
 @pytest.mark.parametrize("shape,exc,match", [
-    ((16, 16, 16, 3), NotImplementedError, "ROADMAP Queue A item 6"),
-    ((40, 30, 1), ValueError, "divisible")])
+    ((4, 16, 16, 16, 3), ValueError, r"\(D, H, W, C\)"),
+    ((40, 30, 1), ValueError, "divisible"),
+    ((6, 32, 32, 3), ValueError, "divisible")])
 def test_generator_rejects_shape(shape, exc, match):
     with pytest.raises(exc, match=match):
         GeneratorBE(shape, filters=8, num_conv=1)

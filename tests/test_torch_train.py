@@ -119,10 +119,18 @@ def test_field_loss_zero_at_identity_and_rejects_norm():
 
 
 def test_loss_3d_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tlosses.apply_curl(torch.zeros(1, 4, 4, 4, 3))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tlosses.jacobian_of(torch.zeros(1, 4, 4, 4, 3))
+    # 3D (Queue A item 6) is ported: the curl and the jacobian of a 5D
+    # field go through curl3d_p / jacobian3d_p, also from the generator's
+    # permuted (non-contiguous) output.
+    psi = torch.randn(2, 3, 4, 5, 6).permute(0, 2, 3, 4, 1)
+    assert not psi.is_contiguous()
+    torch.testing.assert_close(tlosses.apply_curl(psi),
+                               fd.curl3d(psi.contiguous()), atol=0, rtol=0)
+    torch.testing.assert_close(tlosses.jacobian_of(psi),
+                               fd.jacobian3d(psi.contiguous())[0], atol=0,
+                               rtol=0)
+    with pytest.raises(ValueError, match="unsupported"):
+        tlosses.apply_curl(torch.zeros(1, 2, 3, 4, 4, 4, 3))
 
 
 def test_non_contiguous_field_goes_through_the_wrapper():
