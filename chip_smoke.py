@@ -3,8 +3,9 @@
     python3 chip_smoke.py          # from the repo root, one card, no args
 
 Drives the port's serving and training paths, 2D (configs #1/#2,
-smoke_pos21_size5) and 3D (config #5, smoke3_vel5_buo3), through the entry
-point a user calls and checks every kernel on the way.  Phases, one line
+smoke_pos21_size5) and 3D (config #5, smoke3_vel5_buo3), and config #4's
+autoencoder + latent integrator pipeline (smoke_mov200_f400), through the
+entry point a user calls and checks every kernel on the way.  Phases, one line
 each (or a few), each followed by its wall time; any failure raises and the
 script exits non-zero:
 
@@ -34,11 +35,24 @@ script exits non-zero:
      kernel's launch count must be exact per step.  Then one f32 train
      step through the kernels against the same step through the plain ops
      (loss and every parameter's gradient);
+  7. config #4 (smoke_mov200_f400) at full width through ``main``: the
+     autoencoder (filters 128, num_conv 4, z_num 16, bf16, batch 8) trains
+     on a learnable synthetic moving-source set (16 scenes x 64 frames of
+     the published 200 x 400) streaming, resumes with
+     ``--device_data_cache``, and encodes the set; the latent integrator
+     (w_num 30) trains on the codes and resumes; a scene is rolled out and
+     decoded through the AE.  Losses must fall, launch counts be exact (an
+     AE step's are a "de" step's, the curl once a decoded batch, none in
+     the encode pass or the integrator), the rollout's codes and first
+     decoded batch equal their recomputation through the plain ops; then
+     one f32 AE train step, kernels against plain ops;
   5. timing (printed only): generator + curl throughput (2D batch 512, 3D
      batch 32), the device time of a train step (2D batch 8 and 64, 3D
      batch 8; kernels and plain ops), train steps/s end to end, each kernel
      alone against its plain version and its bound (device time from the
-     profiler, inputs cold), and profile lines by kernel.
+     profiler, inputs cold; the 2D kernels also at [1,128,96], the floor
+     of their launch configuration), config #4's AE step, encode pass,
+     integrator step and a 400-frame rollout, and profile lines by kernel.
 
 Then it prints the kernels as one JSON line, the card's name and power
 limit as nvidia-smi gives them, and, last, the ``{"ok": true, ...}`` line.
@@ -143,8 +157,50 @@ PATH_3D = MainPath(
                    "jacobian3d_fused": 2, "jacobian3d_bwd": 1},
     forward_launches={"curl3d_fused": 1})
 PATHS = (PATH_2D, PATH_3D)
-# The flagship width of both paths (the config.py defaults).
+# The flagship width of all paths (the config.py defaults).
 FLAGSHIP = {"filters": 128, "num_conv": 4}
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentPath:
+    """Config #4's pipeline at full width: the autoencoder trained on a
+    moving-source set, its encode pass, the latent integrator trained on
+    the codes, and its rollout decoded through the AE; how far each phase
+    drives it and the kernel launches a run of it must make."""
+    name: str
+    dataset: str
+    resolution: tuple            # (H, W)
+    param_ranges: tuple          # (src_x_pos, frame)
+    num_scenes: int              # the published set ...
+    num_frames: int
+    scenes: int                  # ... and the synthetic one made here
+    frames: int
+    ae_steps: int                # AE: train streaming to ae_steps, resume
+    ae_resume: int               # with the device cache to ae_resume
+    nn_steps: int                # integrator: train to nn_steps, resume
+    nn_resume: int               # to nn_resume
+    log_step: int
+    save_step: int               # a checkpoint and a sample dump each
+    w_num: int                   # the integrator's training window
+    z_num: int
+    parity_batch: int
+    step_launches: dict          # kernel launches of one AE train step ...
+    forward_launches: dict       # ... and of one decoded batch
+
+
+# Config #4 (smoke_mov200_f400: 128x96x2, params src_x_pos and frame; AE
+# filters 128, num_conv 4, repeat 5, z_num 16; integrator nn_hidden 512,
+# nn_depth 2, w_num 30): 16 scenes x their first 64 frames of the published
+# 200 x 400, for the time limit.  An AE step launches a "de" step's
+# kernels; an integrator step, the encode pass and the rollout's latent
+# steps launch none.
+PATH_MOV = LatentPath(
+    name="mov", dataset="smoke_mov200_f400", resolution=(128, 96),
+    param_ranges=((0.2, 0.8), (0.0, 399.0)), num_scenes=200,
+    num_frames=400, scenes=16, frames=64, ae_steps=200, ae_resume=300,
+    nn_steps=200, nn_resume=300, log_step=20, save_step=100, w_num=30,
+    z_num=16, parity_batch=8, step_launches=PATH_2D.step_launches,
+    forward_launches=PATH_2D.forward_launches)
 
 # name -> (csrc file, the TPU kernel it replaces, its inputs' channels, the
 # spatial dims it takes)
@@ -185,6 +241,8 @@ F32_FLOPS_PER_S = 67e12
 # Each timed call reads inputs no earlier call left in the 50 MB L2: a ring
 # of input sets of at least this many bytes, as a training step finds them.
 RING_BYTES = 256 << 20
+# The kernel of torch.cuda._sleep, which opens each profiled window.
+SENTINEL_KERNEL = "spin_kernel"
 
 
 def card_line() -> str:
@@ -714,8 +772,6 @@ def _metrics(run: str) -> list[dict]:
 def phase_train(device, root: str, path: MainPath) -> dict:
     """Train, resume and serve ``path`` through ``main`` at the flagship
     width."""
-    import torch
-
     from deepfluids_tpu_torch.config import get_config
     from deepfluids_tpu_torch.main import main
     from deepfluids_tpu_torch.ops import cuda_fd
@@ -747,18 +803,9 @@ def phase_train(device, root: str, path: MainPath) -> dict:
             (flags + ["--max_step", str(n1), "--load_path", run,
                       "--device_data_cache", "true"],
              n1 - n0, n1 // save - n0 // save)):
-        cuda_fd.reset_launch_counts()
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        main(get_config(argv), device=device)
-        torch.cuda.synchronize(device)
-        secs = time.perf_counter() - t0
-        launches = dict(cuda_fd.launch_counts)
-        if launches != per_step(steps, dumps):
-            raise AssertionError(f"{path.name} training launched "
-                                 f"{launches}, want {per_step(steps, dumps)}"
-                                 f" for {steps} steps and {dumps} sample "
-                                 f"dumps")
+        _, secs, launches = _drive(
+            device, argv, per_step(steps, dumps),
+            f"{path.name} training ({steps} steps, {dumps} sample dumps)")
         runs.append({"secs": secs, "launches": launches, "steps": steps})
 
     rows = _metrics(run)
@@ -766,10 +813,7 @@ def phase_train(device, root: str, path: MainPath) -> dict:
     want = list(range(path.log_step, n1 + 1, path.log_step))
     if steps != want:   # the resume must start at the saved step
         raise AssertionError(f"metrics steps {steps}, want {want}")
-    losses = [r["loss"] for r in rows]
-    first, last = rows[0]["loss"], rows[n0 // path.log_step - 1]["loss"]
-    if not (np.isfinite(losses).all() and last < first):
-        raise AssertionError(f"loss did not fall: {losses}")
+    first, last = _falls(rows, n0, path.name)
     ckpts = sorted(int(n) for n in os.listdir(os.path.join(run, "checkpoint")))
     saves = list(range(save, n1 + 1, save))
     samples = sorted(os.listdir(os.path.join(run, "sample")))
@@ -810,7 +854,7 @@ def phase_train(device, root: str, path: MainPath) -> dict:
           f"{runs[0]['secs']:.2f} s, resumed at step {n0} with "
           f"--device_data_cache to {n1} in {runs[1]['secs']:.2f} s; loss "
           f"{first:.4f} (step {path.log_step}) -> {last:.4f} (step {n0}) -> "
-          f"{losses[-1]:.4f} (step {n1}); launches of the first run "
+          f"{rows[-1]['loss']:.4f} (step {n1}); launches of the first run "
           f"{nonzero} = {path.step_launches} per step + "
           f"{path.forward_launches} per sample dump, exact in both runs; "
           f"checkpoints {ckpts}; sample PNGs {samples}; served 24 fields from "
@@ -855,12 +899,12 @@ def phase_train_parity(device, train: dict, path: MainPath) -> None:
     if nk != expected_launches(path.step_launches) or any(np_.values()):
         raise AssertionError(f"parity launches: kernels {nk}, plain {np_}")
     # Each parameter's gradient error relative to its own largest entry;
-    # conv_out's bias against the largest entry of all gradients, since the
-    # curl annihilates a constant potential and its gradient is rounding
-    # noise.
+    # conv_out's bias (the AE decoder's too) against the largest entry of
+    # all gradients, since the curl annihilates a constant potential and
+    # its gradient is rounding noise.
     scale = max(float(g.abs().max()) for g in gp.values())
     err = {n: float((gk[n] - gp[n]).abs().max()) / (
-        scale if n == "conv_out.bias" else float(gp[n].abs().max()))
+        scale if n.endswith("conv_out.bias") else float(gp[n].abs().max()))
         for n in gk}
     worst = max(err, key=err.get)
     if not (abs(lk - lp) <= 1e-6 * abs(lp) and err[worst] <= TOL_GRAD):
@@ -871,6 +915,329 @@ def phase_train_parity(device, train: dict, path: MainPath) -> None:
           f"loss kernels {lk!r} vs plain {lp!r}; every parameter's gradient "
           f"within {err[worst]:.2e} ({worst}) of the plain one, relative to "
           f"its largest entry (tol {TOL_GRAD})", flush=True)
+
+
+def make_mov_dataset(root: str, path: LatentPath) -> tuple[str, np.ndarray]:
+    """A learnable moving-source set under config #4's published manifest:
+    128x96x2 velocity, the curl of a Gaussian stream-function blob whose x
+    position follows a seeded smooth random walk in [0.2, 0.8] (knots every
+    40 frames, as ``datagen.scenes.smoke_mov`` draws it) and which rises
+    with the frame; the first ``path.frames`` frames of ``path.scenes``
+    scenes.  Returns the data dir and scene 0's walk over all
+    ``path.num_frames`` frames."""
+    from deepfluids_tpu_torch.data import Manifest, save_manifest
+
+    h, w = path.resolution
+    ds = os.path.join(root, "train_data_mov", path.dataset)
+    os.makedirs(os.path.join(ds, "v"))
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, w / h, w),
+                         indexing="ij")
+    rng = np.random.default_rng(4)
+    knots = max(path.num_frames // 40, 2)
+    r = 0.21
+    vmax, walks = 0.0, []
+    for s in range(path.scenes):
+        walk = np.interp(np.linspace(0, knots - 1, path.num_frames),
+                         np.arange(knots), rng.uniform(0.2, 0.8, knots))
+        walks.append(walk)
+        for f in range(path.frames):
+            cy = 0.15 + 0.7 * f / (path.frames - 1)
+            psi = np.exp(-((xx - 0.75 * walk[f]) ** 2 + (yy - cy) ** 2)
+                         / (2 * r * r))
+            u = np.diff(psi, axis=0, append=psi[-1:]) * h
+            v = -np.diff(psi, axis=1, append=psi[:, -1:]) * w
+            x = np.stack([u, v], -1).astype(np.float32)
+            vmax = max(vmax, float(np.abs(x).max()))
+            np.savez(os.path.join(ds, "v", f"{s}_{f}.npz"), x=x,
+                     y=np.array([walk[f], f], np.float32))
+    save_manifest(Manifest(
+        param_names=["src_x_pos", "frame"],
+        param_ranges=[list(r) for r in path.param_ranges],
+        num_scenes=path.num_scenes, num_frames=path.num_frames,
+        resolution=list(path.resolution), num_channels=2,
+        v_range=[-vmax, vmax], data_type="velocity"), ds)
+    return os.path.dirname(ds), walks[0]
+
+
+def _drive(device, argv: list[str], want: dict, what: str):
+    """``main`` on ``argv`` from launch counts at 0; (result, seconds,
+    launches), which must be ``want``."""
+    import torch
+
+    from deepfluids_tpu_torch.config import get_config
+    from deepfluids_tpu_torch.main import main
+    from deepfluids_tpu_torch.ops import cuda_fd
+
+    cuda_fd.reset_launch_counts()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    result = main(get_config(argv), device=device)
+    torch.cuda.synchronize(device)
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_fd.launch_counts)
+    if launches != want:
+        raise AssertionError(f"{what} launched {launches}, want {want}")
+    return result, secs, launches
+
+
+def _falls(rows: list[dict], upto: int, what: str) -> tuple[float, float]:
+    """(first, step ``upto``) losses of ``metrics.jsonl`` rows; the loss
+    must be finite and fall."""
+    losses = [r["loss"] for r in rows]
+    first = rows[0]["loss"]
+    last = next(r["loss"] for r in rows if r["step"] == upto)
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"{what} loss did not fall: {losses}")
+    return first, last
+
+
+def phase_train_mov(device, root: str, path: LatentPath) -> dict:
+    """Config #4 through ``main`` at full width: train the AE (streaming,
+    then resumed with the device cache), encode the set, train the latent
+    integrator on the codes (and resume it), and roll out a scene through
+    the AE's decoder; the decoded batch against the plain ops."""
+    import torch
+
+    from deepfluids_tpu_torch.config import load_config
+    from deepfluids_tpu_torch.data import load_manifest
+    from deepfluids_tpu_torch.models import LatentIntegrator, load_flax_npz
+    from deepfluids_tpu_torch.models import rollout as latent_rollout
+    from deepfluids_tpu_torch.train.trainer import Trainer
+    from deepfluids_tpu_torch.utils.parity import normalized_l2
+
+    t0 = time.perf_counter()
+    data_dir, walk = make_mov_dataset(root, path)
+    data_s = time.perf_counter() - t0
+    logs = os.path.join(root, "logs")
+    common = ["--data_dir", data_dir, "--dataset", path.dataset,
+              "--log_dir", logs, "--batch_size", "8",
+              "--log_step", str(path.log_step),
+              "--save_step", str(path.save_step),
+              "--test_step", str(path.save_step), "--num_worker", "4",
+              "--z_num", str(path.z_num)]
+    ae_flags = (["--is_train", "True", "--arch", "ae", "--tag", "chip_ae",
+                 "--compute_dtype", "bfloat16",
+                 "--filters", str(FLAGSHIP["filters"]),
+                 "--num_conv", str(FLAGSHIP["num_conv"])] + common)
+    nn_flags = (["--is_train", "True", "--arch", "nn", "--tag", "chip_nn",
+                 "--w_num", str(path.w_num)] + common)
+    ae_run = os.path.join(logs, f"{path.dataset}_chip_ae")
+    nn_run = os.path.join(logs, f"{path.dataset}_chip_nn")
+    n0, n1, save = path.ae_steps, path.ae_resume, path.save_step
+    none = expected_launches({})
+
+    # The AE: train streaming, then resume with --device_data_cache; every
+    # step launches the step kernels, every sample dump the curl.
+    ae_runs = []
+    for argv, steps, dumps in (
+            (ae_flags + ["--max_step", str(n0)], n0, n0 // save),
+            (ae_flags + ["--max_step", str(n1), "--load_path", ae_run,
+                         "--device_data_cache", "true"],
+             n1 - n0, n1 // save - n0 // save)):
+        want = expected_launches({
+            k: steps * n + dumps * path.forward_launches.get(k, 0)
+            for k, n in path.step_launches.items()})
+        _, secs, launches = _drive(device, argv, want, "AE training")
+        ae_runs.append({"secs": secs, "launches": launches, "steps": steps})
+    rows = _metrics(ae_run)
+    if [r["step"] for r in rows] != list(range(path.log_step, n1 + 1,
+                                               path.log_step)):
+        raise AssertionError(f"AE metrics steps {[r['step'] for r in rows]}")
+    ae_loss = _falls(rows, n0, "AE") + (rows[-1]["loss"],)
+    saves = list(range(save, n1 + 1, save))
+    samples = sorted(os.listdir(os.path.join(ae_run, "sample")))
+    if samples != [f"{s:07d}.png" for s in saves]:
+        raise AssertionError(f"AE sample PNGs {samples}")
+    ae_rate = {"stream": rows[n0 // path.log_step - 1]["steps_per_sec"],
+               "cache": rows[-1]["steps_per_sec"]}
+
+    # The encode pass: one code file a scene, no FD kernel.
+    result, enc_s, enc_launches = _drive(
+        device, ["--is_train", "False", "--load_path", ae_run], none,
+        "the encode pass")
+    codes = sorted(glob.glob(os.path.join(result["code_dir"], "*.npz")))
+    if len(codes) != path.scenes:
+        raise AssertionError(f"{len(codes)} code files, {path.scenes} "
+                             f"wanted")
+    for f in codes:
+        with np.load(f) as d:
+            if (d["z"].shape != (path.frames, path.z_num)
+                    or d["p"].shape != (path.frames, 2)
+                    or not np.isfinite(d["z"]).all()):
+                raise AssertionError(f"bad code file {f}")
+
+    # The integrator: train on the codes, resume; no FD kernel.
+    nn_runs = []
+    for argv, steps in (
+            (nn_flags + ["--max_step", str(path.nn_steps)], path.nn_steps),
+            (nn_flags + ["--max_step", str(path.nn_resume),
+                         "--load_path", nn_run],
+             path.nn_resume - path.nn_steps)):
+        _, secs, launches = _drive(device, argv, none, "integrator training")
+        nn_runs.append({"secs": secs, "launches": launches, "steps": steps})
+    rows = _metrics(nn_run)
+    if rows[-1]["step"] != path.nn_resume:
+        raise AssertionError(f"integrator metrics {rows[-1]}")
+    nn_loss = _falls(rows, path.nn_steps, "integrator") + (rows[-1]["loss"],)
+
+    # The rollout of scene 0 over its frames, decoded by the AE: the curl
+    # once a decoded batch (--test_batch_size 32), nothing else.  Under
+    # deterministic cuDNN, so the recomputation below runs the same convs.
+    batches = -(-path.frames // 32)
+    torch.backends.cudnn.deterministic = True
+    result, roll_s, roll_launches = _drive(
+        device, ["--is_train", "False", "--load_path", nn_run,
+                 "--ae_load_path", ae_run],
+        expected_launches({k: batches * n for k, n in
+                           path.forward_launches.items()}), "the rollout")
+    out = os.path.join(nn_run, "test")
+    with np.load(os.path.join(out, "rollout.npz")) as d:
+        x, z = d["x"], d["z"]
+    if (x.shape != (path.frames,) + tuple(path.resolution) + (2,)
+            or not np.isfinite(x).all() or z.shape != (path.frames, 1,
+                                                        path.z_num)
+            or not os.path.exists(os.path.join(out, "rollout.gif"))
+            or "rollout_field_l2" not in result):
+        raise AssertionError(f"rollout artifacts: x {x.shape}, z {z.shape}, "
+                             f"{sorted(result)}")
+    # The rollout again: the latent steps on the card from the first code,
+    # and its first decoded batch through the plain ops.
+    manifest = load_manifest(os.path.join(data_dir, path.dataset))
+    ae = Trainer(load_config(ae_run), run_dir=ae_run, device=device,
+                 save_cfg=False)
+    ae.restore_weights()
+    nn_model = LatentIntegrator(path.z_num, 2, hidden=512, depth=2)
+    load_flax_npz(os.path.join(nn_run, "weights.npz"), nn_model)
+    nn_model.to(device)
+    with np.load(codes[0]) as d:
+        z0, p = d["z"][:1], manifest.normalize_params(d["p"])
+    with torch.inference_mode(), plain_fd_ops():
+        z_ref = latent_rollout(
+            nn_model, torch.from_numpy(z0).to(device),
+            torch.from_numpy(p[:, None].astype(np.float32)).to(device), 2)
+        ref = manifest.denormalize_field(ae.apply_decode(
+            torch.from_numpy(z[:32, 0]).to(device)).float().cpu().numpy())
+    torch.backends.cudnn.deterministic = False
+    z_err = float(np.abs(z_ref.cpu().numpy() - z).max())
+    l2 = normalized_l2(x[:32], ref)
+    if not (z_err <= 1e-5 and l2 < TOL_PARITY):
+        raise AssertionError(f"rollout vs recomputation: codes {z_err}, "
+                             f"fields L2 {l2}")
+    drift = result["rollout_field_l2"]
+    print(f"phase 7 config #4 path MOV: ok  main() on {path.scenes} x "
+          f"{path.frames} synthetic frames of "
+          f"{'x'.join(map(str, path.resolution))}x2 (of the published "
+          f"{path.num_scenes} x {path.num_frames}, cut for the time limit; "
+          f"made in {data_s:.2f} s): AE (filters {FLAGSHIP['filters']}, "
+          f"num_conv {FLAGSHIP['num_conv']}, z_num {path.z_num}, bf16, "
+          f"batch 8) {n0} steps streaming in {ae_runs[0]['secs']:.2f} s, "
+          f"resumed with --device_data_cache to {n1} in "
+          f"{ae_runs[1]['secs']:.2f} s, loss {ae_loss[0]:.4f} -> "
+          f"{ae_loss[1]:.4f} -> {ae_loss[2]:.4f}, launches exactly "
+          f"{path.step_launches} a step + {path.forward_launches} a sample "
+          f"dump, sample PNGs {samples}; encode pass {len(codes)} code "
+          f"files of [{path.frames}, {path.z_num}] in {enc_s:.2f} s, no FD "
+          f"kernel; integrator (nn_hidden 512, nn_depth 2, w_num "
+          f"{path.w_num}, batch 8) {path.nn_steps} steps in "
+          f"{nn_runs[0]['secs']:.2f} s, resumed to {path.nn_resume} in "
+          f"{nn_runs[1]['secs']:.2f} s, loss {nn_loss[0]:.5f} -> "
+          f"{nn_loss[1]:.5f} -> {nn_loss[2]:.5f}, no FD kernel; rollout of "
+          f"{path.frames} frames in {roll_s:.2f} s, curl2d_fused "
+          f"{roll_launches['curl2d_fused']} = {batches} decoded batches; "
+          f"rollout_field_l2 median {drift['l2_median']} (first quarter "
+          f"{drift['l2_firstq_median']}, last {drift['l2_lastq_median']}); "
+          f"recomputed codes max abs err {z_err:.2e}, first batch vs plain "
+          f"ops L2 {l2:.2e}", flush=True)
+    return {"run": ae_run, "nn_run": nn_run, "walk": walk,
+            "ae_runs": ae_runs, "nn_runs": nn_runs,
+            "serving": [enc_launches, roll_launches],
+            "ae_steps_per_sec": ae_rate, "encode_s": enc_s,
+            "rollout_s": roll_s}
+
+
+def phase_mov_timing(device, mov: dict, card: str, path: LatentPath) -> dict:
+    """Config #4's timings (printed only): the AE train step at batch 8,
+    kernels against plain ops; the AE's end-to-end steps/s; the encode
+    pass; the integrator step; a rollout over the published scene length,
+    decode included; a profile line for each."""
+    import torch
+
+    from deepfluids_tpu_torch.config import load_config
+    from deepfluids_tpu_torch.infer import rollout_trajectory
+    from deepfluids_tpu_torch.train.trainer import Trainer
+
+    ae = Trainer(load_config(mov["run"]), run_dir=mov["run"], device=device,
+                 save_cfg=False)
+    ae.restore_weights()
+    cx, cy = ae._load_device_cache()
+    x, y = cx[:8].float(), cy[:8]
+
+    def plain_step():
+        with plain_fd_ops():
+            ae._train_step(x, y)
+
+    kern, plain, runs = alternated(plain_step, lambda: ae._train_step(x, y),
+                                   20)
+    print(f"phase 5 timing [{card}]: MOV AE train step (fwd+bwd+Adam) "
+          f"flagship bf16 batch 8: kernels {kern:.3f} ms ({1e3 / kern:.1f} "
+          f"steps/s), plain ops {plain:.3f} ms (p {runs[0]:.3f} k "
+          f"{runs[1]:.3f} k {runs[2]:.3f} p {runs[3]:.3f}); end to end "
+          f"(metrics.jsonl) streaming {mov['ae_steps_per_sec']['stream']}, "
+          f"device cache {mov['ae_steps_per_sec']['cache']} steps/s",
+          flush=True)
+    n_fields = path.scenes * path.frames
+    xb = cx[:32].float()
+    with torch.inference_mode():
+        enc_ms = cuda_ms(lambda: ae.model.encode(xb), 20)
+    print(f"phase 5 timing [{card}]: MOV encode pass {n_fields} fields in "
+          f"{mov['encode_s']:.2f} s = {n_fields / mov['encode_s']:.1f} "
+          f"fields/s end to end (main(), .npz reads and code writes "
+          f"included); encoder alone at batch 32 {enc_ms:.3f} ms = "
+          f"{32e3 / enc_ms:.1f} fields/s", flush=True)
+
+    nn = Trainer(load_config(mov["nn_run"]), run_dir=mov["nn_run"],
+                 device=device, save_cfg=False)
+    nn.restore_weights()
+    z, p = (torch.from_numpy(a).to(device)
+            for a in nn.codes.window_batch(8, path.w_num, step=1))
+    nn_ms = cuda_ms(lambda: nn._train_step(z, p), 20)
+    print(f"phase 5 timing [{card}]: MOV integrator train step (rollout of "
+          f"w_num {path.w_num}, bwd, Adam) batch 8: {nn_ms:.3f} ms "
+          f"({1e3 / nn_ms:.1f} steps/s)", flush=True)
+
+    # A rollout over the published scene length from scene 0's first code,
+    # on scene 0's whole walk (the synthetic scenes hold fewer frames).
+    t = path.num_frames
+    raw_p = np.stack([mov["walk"], np.arange(t)], 1).astype(np.float32)
+
+    def roll():
+        return rollout_trajectory(nn.model, ae.apply_decode,
+                                  nn.codes.z[0][:1], raw_p, ae.manifest,
+                                  decode_batch=32, device=device)
+
+    roll()
+    t0 = time.perf_counter()
+    _, fields = roll()
+    roll_s = time.perf_counter() - t0
+    if fields.shape[0] != t or not np.isfinite(fields).all():
+        raise AssertionError(f"400-frame rollout: {fields.shape}")
+    print(f"phase 5 timing [{card}]: MOV rollout of {t} frames (the "
+          f"published scene length; latent steps, decode in batches of 32, "
+          f"fields back to the host): {roll_s * 1e3:.1f} ms = "
+          f"{t / roll_s:.1f} frames/s", flush=True)
+    try:
+        profile_line(f"MOV AE train step batch 8 bf16 [{card}]",
+                     lambda: ae._train_step(x, y), kern)
+        with torch.inference_mode():
+            profile_line(f"MOV encoder batch 32 bf16 [{card}]",
+                         lambda: ae.model.encode(xb), enc_ms)
+        profile_line(f"MOV integrator train step w_num {path.w_num} batch 8 "
+                     f"[{card}]", lambda: nn._train_step(z, p), nn_ms)
+        profile_line(f"MOV rollout {t} frames [{card}]", roll,
+                     roll_s * 1e3, iters=1)
+    except Exception as e:  # noqa: BLE001 - diagnostics only
+        print(f"profile MOV: not measured ({type(e).__name__}: {e})")
+    return {"ae_step_ms": kern, "nn_step_ms": nn_ms, "rollout_s": roll_s}
 
 
 def phase_timing(device, weights: str, card: str, path: MainPath,
@@ -952,19 +1319,42 @@ def device_ms(calls: dict, iters: int) -> dict:
     for label in order:
         calls[label]()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for label in order:
-            for _ in range(iters):
-                calls[label]()
-        torch.cuda.synchronize()
+    # Every kernel row must count a whole number of calls (2 * iters, or a
+    # multiple for a plain version's kernels).  Late in a run, windows lost
+    # one record each of a plain version's kernel (5 of 5 windows, in two
+    # runs), probably the window's first: each window now opens with a
+    # sentinel kernel that is not counted.  A window where a row lost more
+    # than one record and more than 1 % of them (one read 0.0131 ms for a
+    # kernel whose events time was 0.0392 ms, and half its plain version's
+    # time) is measured again; a row short of fewer counts its whole
+    # launches at the mean of the records it kept.
+    calls_per_row = 2 * iters
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for label in order:
+                for _ in range(iters):
+                    calls[label]()
+            torch.cuda.synchronize()
+        rows = [(ev, max(1, round(ev.count / calls_per_row)) * calls_per_row)
+                for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and SENTINEL_KERNEL not in ev.key]
+        if all(abs(ev.count - want) <= max(1, 0.01 * want)
+               for ev, want in rows):
+            break
+    else:
+        raise AssertionError("the profiler lost kernel records in five "
+                             "windows: " + ", ".join(
+                                 f"{ev.key[:40]} x{ev.count} of {want}"
+                                 for ev, want in rows))
     total = dict.fromkeys(calls, 0.0)
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
+    for ev, want in rows:
         label = next((k for k in calls if k != "plain" and k in ev.key),
                      "plain")
-        total[label] += ev.self_device_time_total
-    return {k: v / (2 * iters) / 1e3 for k, v in total.items()}
+        total[label] += ev.self_device_time_total * want / ev.count
+    return {k: v / calls_per_row / 1e3 for k, v in total.items()}
 
 
 def kernel_timing(device, card: str, names: list[str],
@@ -1167,13 +1557,19 @@ def main() -> None:
                                      root, path)
             timed(f"phase 6 parity {tag}", phase_train_parity, device,
                   train[path.name], path)
+        mov = timed("phase 7 MOV", phase_train_mov, device, root, PATH_MOV)
+        timed("phase 6 parity MOV", phase_train_parity, device, mov,
+              PATH_MOV)
+        # The 2D kernels also at [1,128,96]: the card's floor for their
+        # launch configuration.
         timing["2d"] = timed("phase 5 2D serving", phase_timing, device,
                              serving["2d"]["weights"], card, PATH_2D,
-                             (512, 32), 10, (512, 32, 8))
+                             (512, 32), 10, (512, 32, 8, 1))
         train_timing["2d"] = timed(
             "phase 5 2D training", phase_train_timing, device, train["2d"],
             card, PATH_2D, (8, 64),
-            ["jacobian2d_fused", "curl2d_bwd", "jacobian2d_bwd"], (512, 8))
+            ["jacobian2d_fused", "curl2d_bwd", "jacobian2d_bwd"], (512, 8, 1))
+        timed("phase 5 MOV", phase_mov_timing, device, mov, card, PATH_MOV)
         timing["3d"] = timed("phase 5 3D serving", phase_timing, device,
                              serving["3d"]["weights"], card, PATH_3D, (32,),
                              5, (32, 8))
@@ -1195,11 +1591,19 @@ def main() -> None:
             by_path[f"serving_{p.name}"] = serving[p.name]["launches"][name]
             by_path[f"train_{p.name}"] = sum(
                 r["launches"][name] for r in train[p.name]["runs"])
+        by_path["train_mov"] = sum(r["launches"][name] for r in
+                                   mov["ae_runs"] + mov["nn_runs"])
+        by_path["serving_mov"] = sum(s[name] for s in mov["serving"])
         if by_path[f"train_{path.name}"] == 0 or (
                 name in path.forward_launches
                 and by_path[f"serving_{path.name}"] == 0):
             raise AssertionError(f"{name} never launched on the "
                                  f"{path.name} path: {by_path}")
+        if nd == 2 and (by_path["train_mov"] == 0 or (
+                name in PATH_MOV.forward_launches
+                and by_path["serving_mov"] == 0)):
+            raise AssertionError(f"{name} never launched on config #4's "
+                                 f"path: {by_path}")
         # The time at the timed shape: 2D [512,128,96,.], 3D
         # [32,32,64,112,.], f32; no single PyTorch call computes the
         # edge-replicated difference or its transpose (torch.gradient takes

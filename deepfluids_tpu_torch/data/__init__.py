@@ -2,13 +2,15 @@
 numpy-only data modules.
 
 :mod:`.manifest` (the ``args.txt`` contract), :mod:`.dataset`
-(``FieldDataset``, ``BatchManager`` and the (seed, step) batch-index
-stream) and :mod:`.native_npz` (the bulk ``.npz`` reader, built from the
-repo's ``native/npz_loader.cc`` into the port's ``_build/``).
+(``FieldDataset``, ``BatchManager``, the latent ``CodeDataset`` and the
+(seed, step) batch-index stream) and :mod:`.native_npz` (the bulk
+``.npz`` reader, built from the repo's ``native/npz_loader.cc`` into the
+port's ``_build/``).
 """
 
 from deepfluids_tpu_torch.data.dataset import (  # noqa: F401
     BatchManager,
+    CodeDataset,
     FieldDataset,
     step_batch_indices,
 )

@@ -1,7 +1,7 @@
 """CLI entry: ``python -m deepfluids_tpu_torch.main --flags...``.
 
 Counterpart of :mod:`deepfluids_tpu.main` with the same flag set
-(:mod:`deepfluids_tpu_torch.config`).  Ported so far, for arch "de":
+(:mod:`deepfluids_tpu_torch.config`):
 
     # train (a fresh run dir <log_dir>/<dataset>_<tag>; --load_path <run>
     # resumes it from its latest checkpoint), up to --max_step
@@ -12,11 +12,22 @@ Counterpart of :mod:`deepfluids_tpu.main` with the same flag set
     python -m deepfluids_tpu_torch.main --arch de --is_train False \\
         --load_path <run>
 
-Serving rebuilds the run's generator from its ``params.json``, loads
-``<run>/weights.npz`` (which training writes at every checkpoint), sweeps
-the grid and appends a quality evaluation.  Both run on the current CUDA
-device, and raise when there is none, unless ``device`` is given (the
-tests pass ``device="cpu"``).
+    # config #4: train the autoencoder, encode the dataset into
+    # <dataset>/code<z_num><suffix>/, train the latent integrator on the
+    # codes, then roll it out through the AE's decoder into
+    # <nn run>/test/rollout.{npz,gif}
+    python -m deepfluids_tpu_torch.main --arch ae --dataset smoke_mov200_f400
+    python -m deepfluids_tpu_torch.main --arch ae --is_train False \\
+        --load_path <ae run>
+    python -m deepfluids_tpu_torch.main --arch nn --dataset smoke_mov200_f400
+    python -m deepfluids_tpu_torch.main --arch nn --is_train False \\
+        --load_path <nn run> --ae_load_path <ae run>
+
+A test invocation rebuilds the run's model from its ``params.json``
+(the AE of an "nn" rollout from ``--ae_load_path``'s) and loads
+``<run>/weights.npz``, which training writes at every checkpoint.  All of
+it runs on the current CUDA device, and raises when there is none, unless
+``device`` is given (the tests pass ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -27,9 +38,19 @@ import sys
 import numpy as np
 import torch
 
-from deepfluids_tpu_torch.config import Config, get_config, merge_test_config
-from deepfluids_tpu_torch.infer.sweep import run_test_sweep
+from deepfluids_tpu_torch.config import (
+    Config,
+    get_config,
+    merge_test_config,
+)
+from deepfluids_tpu_torch.infer import (
+    encode_dataset,
+    rollout_trajectory,
+    run_test_sweep,
+    score_rollout_vs_sim,
+)
 from deepfluids_tpu_torch.train.trainer import Trainer
+from deepfluids_tpu_torch.utils.images import save_gif
 from deepfluids_tpu_torch.utils.rundir import get_logger
 
 log = get_logger()
@@ -66,10 +87,22 @@ def main(config: Config, device: str | torch.device | None = None) -> dict:
     # Rebuild the TRAINED architecture from the run's own params.json;
     # explicit CLI flags still override.
     config = merge_test_config(config, config.load_path)
+    if config.arch == "nn" and not config.ae_load_path:
+        raise SystemExit("arch 'nn' test needs --ae_load_path "
+                         "(the trained autoencoder's run dir)")
     trainer = Trainer(config, run_dir=config.load_path, device=device,
                       save_cfg=False)
     log.info("loaded %s on %s", trainer.restore_weights(), device)
     out_dir = os.path.join(trainer.run_dir, "test")
+    if config.arch == "ae":
+        code_dir = encode_dataset(trainer.encode, config.dataset_dir,
+                                  config.z_num,
+                                  batch_size=config.test_batch_size,
+                                  suffix=config.code_suffix)
+        log.info("encoded dataset -> %s", code_dir)
+        return {"code_dir": code_dir}
+    if config.arch == "nn":
+        return _rollout(trainer, config, out_dir, device)
     # Sweep grid: --test_counts, else the dataset's own generation grid,
     # else 5 per axis.
     if config.test_counts:
@@ -85,6 +118,45 @@ def main(config: Config, device: str | torch.device | None = None) -> dict:
         device=device)
     result["eval"] = trainer.evaluate(num_samples=128)
     log.info("sweep done: %s", result)
+    return result
+
+
+def _rollout(trainer: Trainer, config: Config, out_dir: str,
+             device: torch.device) -> dict:
+    """Arch "nn" test: roll the first scene's code out for --test_frames
+    frames (default: the whole scene) through the AE's decoder, write
+    ``rollout.npz`` / ``rollout.gif`` and score the fields against the
+    simulated frames."""
+    # The AE from its own params.json (its widths may differ from this
+    # invocation's flags) and its weights.npz.
+    ae = trainer._ae_trainer()
+    codes = trainer.codes
+    z_seq = codes.z[0]                                       # [T, z_num]
+    p_raw = codes.manifest.denormalize_params(codes.p[0])    # [T, P] raw
+    t = config.test_frames or z_seq.shape[0]
+    # History H > 1 seeds the rollout with the first H encoded codes.
+    h = trainer.c.nn_history
+    z_start = z_seq[:h][:, None] if h > 1 else z_seq[:1]
+    z_traj, fields = rollout_trajectory(
+        trainer.model, ae.apply_decode, z_start, p_raw[:t],
+        trainer.manifest, decode_batch=config.test_batch_size,
+        device=device)
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez_compressed(os.path.join(out_dir, "rollout.npz"), z=z_traj,
+                        x=fields[:, 0])
+    levelset = trainer.manifest.num_channels == 1
+    save_gif(os.path.join(out_dir, "rollout.gif"), list(fields[:, 0]),
+             "levelset" if levelset else "vorticity")
+    log.info("rollout of %d steps -> %s", t, out_dir)
+    result = {"rollout_steps": int(t), "out_dir": out_dir}
+    try:
+        result["rollout_field_l2"] = score_rollout_vs_sim(
+            fields[:, 0], config.dataset_dir, codes.scenes[0],
+            field_key="l" if trainer.manifest.data_type == "levelset"
+            else "v")
+        log.info("rollout drift vs sim: %s", result["rollout_field_l2"])
+    except FileNotFoundError:
+        pass  # codes without raw frames on disk: latent-only artifacts
     return result
 
 

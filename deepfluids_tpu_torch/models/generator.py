@@ -52,7 +52,9 @@ def flax_init_(model: nn.Module, seed: int) -> nn.Module:
     for a Linear).
     Drawn on the CPU from a ``torch.Generator`` seeded with ``seed``, in
     module order, so the weights are the same on any device; they are not
-    JAX's numbers (another generator), only its distribution.
+    JAX's numbers (another generator), only its distribution.  A layer
+    flagged ``flax_zero_init`` (the latent integrator's head, Flax's
+    ``kernel_init=zeros``) gets a zero kernel.
     """
     gen = torch.Generator().manual_seed(seed)
     # The std of a unit normal truncated to [-2, 2] (jax.nn.initializers).
@@ -61,7 +63,11 @@ def flax_init_(model: nn.Module, seed: int) -> nn.Module:
     for module in model.modules():
         if not isinstance(module, (nn.Linear, nn.Conv2d, nn.Conv3d)):
             continue
+        module.bias.zero_()
         w = module.weight
+        if getattr(module, "flax_zero_init", False):
+            w.zero_()
+            continue
         fan_in = w[0].numel()      # (out, in) or (out, in, [kd,] kh, kw)
         sigma = 1.0 / math.sqrt(fan_in) / trunc_std
         # Inverse-CDF sampling of the truncated normal.
@@ -69,7 +75,6 @@ def flax_init_(model: nn.Module, seed: int) -> nn.Module:
             lo, hi, generator=gen)
         draw = torch.erfinv(u) * math.sqrt(2.0)
         w.copy_((draw.clamp_(-2.0, 2.0) * sigma).to(w.dtype))
-        module.bias.zero_()
     return model
 
 

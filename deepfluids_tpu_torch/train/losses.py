@@ -1,6 +1,10 @@
-"""Loss of arch "de", ported from :mod:`deepfluids_tpu.train.losses`:
+"""Losses of archs "de", "ae" and "nn", ported from
+:mod:`deepfluids_tpu.train.losses`:
 
     G = curl(psi);   loss = w1 * dist(G, x) + w2 * dist(J(G), J(x))
+
+(+ ``w3`` times the code's parameter error for "ae"; "nn" takes the mean
+squared error of a rolled-out code window)
 
 with ``dist`` the mean absolute ("l1") or squared ("l2") error, optionally
 weighted per sample (``relative``).  The curl and the jacobian go through
@@ -120,3 +124,25 @@ def generator_loss(net_out: torch.Tensor, x: torch.Tensor, use_curl: bool,
     loss, aux = field_loss(pred, x, w1, w2, relative, norm)
     aux["pred"] = pred
     return loss, aux
+
+
+def autoencoder_loss(net_out: torch.Tensor, z: torch.Tensor, x: torch.Tensor,
+                     y: torch.Tensor, use_curl: bool, num_param: int,
+                     w1: float, w2: float, w3: float, relative: bool = False,
+                     norm: str = "l1") -> tuple[torch.Tensor, dict]:
+    """Arch "ae" loss: the reconstruction loss of :func:`generator_loss`
+    plus ``w3`` times the mean squared error of ``z[:, :num_param]``
+    against the normalized parameters ``y`` (the steerable code)."""
+    loss, aux = generator_loss(net_out, x, use_curl, w1, w2, relative, norm)
+    loss_p = l2(z[:, :num_param], y[:, :num_param])
+    aux["loss_param"] = loss_p
+    return loss + w3 * loss_p, aux
+
+
+def latent_window_loss(z_pred: torch.Tensor, z_true: torch.Tensor
+                       ) -> tuple[torch.Tensor, dict]:
+    """Arch "nn" loss over a rollout window ``[W, B, z_num]``: the mean
+    squared error of every code after the shared start (the parameter
+    block matches by construction, as in the reference)."""
+    loss = l2(z_pred[1:], z_true[1:])
+    return loss, {"loss_z": loss}

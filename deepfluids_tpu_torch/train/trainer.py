@@ -1,16 +1,21 @@
-"""The Trainer of the port for arch "de": training and serving of one run.
+"""The Trainer of the port: training and serving of one run, archs "de",
+"ae" and "nn".
 
-Counterpart of :class:`deepfluids_tpu.train.trainer.Trainer` for arch
-"de".  It owns the dataset manifest and ``BatchManager`` (the port's copy
-of the JAX package's, :mod:`deepfluids_tpu_torch.data`), builds the
-generator with Flax's init, its Adam optimizer and cosine schedule
-(:mod:`.state`) on the CUDA card (or on ``device``), and runs
+Counterpart of :class:`deepfluids_tpu.train.trainer.Trainer`.  It owns the
+dataset manifest and the batch source (the port's copies of the JAX
+package's ``BatchManager`` for the field archs "de" / "ae", with (t, t+1)
+pair batches for ``--ae_pred_w``, and ``CodeDataset`` for the latent
+integrator "nn"), builds the arch's model with Flax's init, its Adam
+optimizer and cosine schedule (:mod:`.state`) on the CUDA card (or on
+``device``), and runs
 
   * :meth:`train`: the batch stream of ``BatchManager.batches`` (or the
-    whole dataset on the device, ``--device_data_cache``), both a pure
-    function of (seed, step); ``metrics.jsonl`` rows, sample dumps and
-    checkpoints at the JAX trainer's steps;
-  * :meth:`generate` / :meth:`evaluate`: the serving path.
+    whole dataset on the device, ``--device_data_cache``, "de" / "ae") or
+    of ``CodeDataset.window_batch``, each a pure function of (seed, step);
+    ``metrics.jsonl`` rows, sample dumps and checkpoints at the JAX
+    trainer's steps;
+  * :meth:`generate` ("de"), :meth:`reconstruct` / :meth:`encode` /
+    :meth:`decode` ("ae") and :meth:`evaluate`: the serving path.
 
 Checkpoints are ``<run>/checkpoint/<step>/state.pt`` (params, Adam state,
 step; the 3 newest are kept).  Each save also writes ``<run>/weights.npz``,
@@ -30,16 +35,23 @@ import time
 import numpy as np
 import torch
 
-from deepfluids_tpu_torch.config import Config, save_config
+from deepfluids_tpu_torch.config import Config, load_config, save_config
 from deepfluids_tpu_torch.data import (
     BatchManager,
+    CodeDataset,
     load_npz_batch,
     step_batch_indices,
 )
+from deepfluids_tpu_torch.infer.rollout import padded_chunks
+from deepfluids_tpu_torch.infer.score import score_rollout_vs_sim
 from deepfluids_tpu_torch.models import (
+    Autoencoder,
     GeneratorBE,
+    LatentIntegrator,
     flax_init_,
     load_flax_npz,
+    noise_generator,
+    rollout,
     save_flax_npz,
 )
 from deepfluids_tpu_torch.train import losses
@@ -70,11 +82,7 @@ EXPORT_COMMAND = (
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _CACHE_DTYPES = {"float32": torch.float32, "float16": torch.float16}
-
-_NOT_PORTED = {
-    "ae": "arch 'ae' (autoencoder) is ROADMAP Queue A item 7",
-    "nn": "arch 'nn' (latent integrator) is ROADMAP Queue A item 8",
-}
+ARCHS = ("de", "ae", "nn")
 
 
 def _check_unported_knobs(c: Config) -> None:
@@ -112,6 +120,37 @@ def _check_unported_train_flags(c: Config) -> None:
             raise NotImplementedError(f"{what}; not ported yet")
 
 
+def _check_arch_flags(c: Config) -> None:
+    """The JAX trainer's refusals of flag combinations (its ``__init__``
+    checks), with its messages."""
+    if c.arch not in ARCHS:
+        raise ValueError(f"unknown arch {c.arch!r}")
+    if c.augment_flip_x and c.arch == "nn":
+        raise ValueError("--augment_flip_x applies to arch de/ae "
+                         "(field-space training); the latent integrator "
+                         "trains on encoded codes")
+    if c.nn_history < 1:
+        raise ValueError("--nn_history must be >= 1")
+    if c.ae_pred_w > 0:
+        if c.arch != "ae":
+            raise ValueError("--ae_pred_w trains the autoencoder's "
+                             "co-trained latent predictor (arch ae)")
+        if c.augment_flip_x:
+            raise ValueError("--ae_pred_w with --augment_flip_x is "
+                             "unsupported (pair batches)")
+        if c.input_pipeline == "grain":
+            raise ValueError("--ae_pred_w needs (t, t+1) pair batches; the "
+                             "grain pipeline serves single frames")
+    if c.arch == "nn" and c.nn_history >= c.w_num:
+        raise ValueError(
+            f"--nn_history {c.nn_history} must be < --w_num {c.w_num}: the "
+            "first H window positions are true seed codes, so the window "
+            "needs predicted steps to train on")
+    if c.nn_field_w > 0 and not c.ae_load_path:
+        raise ValueError("--nn_field_w needs --ae_load_path (the frozen "
+                         "decoder to train through)")
+
+
 def _crossed(period: int, step: int, take: int) -> bool:
     """Whether the last ``take`` steps ending at ``step`` crossed a multiple
     of ``period``."""
@@ -119,13 +158,11 @@ def _crossed(period: int, step: int, take: int) -> bool:
 
 
 class Trainer:
-    """Owns the generator, its optimizer and the dataset of one run."""
+    """Owns the model, its optimizer and the dataset of one run."""
 
     def __init__(self, config: Config, run_dir: str | None = None,
                  device: str | torch.device = "cuda", save_cfg: bool = True):
-        if config.arch != "de":
-            raise NotImplementedError(
-                _NOT_PORTED.get(config.arch, f"unknown arch {config.arch!r}"))
+        _check_arch_flags(config)
         _check_unported_knobs(config)
         if config.is_train:
             _check_unported_train_flags(config)
@@ -137,13 +174,23 @@ class Trainer:
         self.device = torch.device(device)
         self.dtype = _DTYPES[config.compute_dtype]
 
-        field_key = "l" if config.data_type == "levelset" else "v"
-        self.bm = BatchManager(
-            config.dataset_dir, config.batch_size, seed=config.seed,
-            cache=config.cache_data, num_workers=config.num_worker,
-            field_key=field_key, holdout_scenes=config.eval_holdout_scenes,
-            holdout_mode=config.holdout_mode)
-        self.manifest = self.bm.manifest
+        if config.arch in ("de", "ae"):
+            field_key = "l" if config.data_type == "levelset" else "v"
+            self.bm = BatchManager(
+                config.dataset_dir, config.batch_size, seed=config.seed,
+                cache=config.cache_data, num_workers=config.num_worker,
+                field_key=field_key,
+                holdout_scenes=config.eval_holdout_scenes,
+                holdout_mode=config.holdout_mode, pair=self.pair_mode)
+            self.manifest = self.bm.manifest
+        else:
+            # The same holdout rule as the AE's BatchManager, so one
+            # --eval_holdout_scenes partitions the whole pipeline.
+            self.codes = CodeDataset(
+                config.dataset_dir, config.z_num, seed=config.seed,
+                holdout_scenes=config.eval_holdout_scenes,
+                suffix=config.code_suffix, holdout_mode=config.holdout_mode)
+            self.manifest = self.codes.manifest
         self.num_param = self.manifest.num_param
         self._check_geometry_flags()
 
@@ -154,7 +201,12 @@ class Trainer:
         self.step = 0      # optimizer updates done; drives the schedule
         self._metrics_path = os.path.join(self.run_dir, "metrics.jsonl")
         self._device_cache: tuple[torch.Tensor, torch.Tensor] | None = None
-        log.info("arch=de params=%.2fM device=%s", sum(
+        self._dump_rng = np.random.default_rng(config.seed + 7919)
+        self._eval_ae: Trainer | None = None
+        if config.nn_field_w > 0:
+            # --nn_field_w trains through the frozen AE decoder.
+            self._ae_trainer().model.requires_grad_(False)
+        log.info("arch=%s params=%.2fM device=%s", config.arch, sum(
             p.numel() for p in self.model.parameters()) / 1e6, self.device)
 
     def _check_geometry_flags(self) -> None:
@@ -174,6 +226,11 @@ class Trainer:
         if (c.res_z or c.is_3d) and not m.is_3d:
             raise ValueError(f"--is_3d/--res_z given but {c.dataset} is 2D")
 
+    @property
+    def pair_mode(self) -> bool:
+        """(t, t+1) pair batches: ``--ae_pred_w`` on arch "ae"."""
+        return self.c.arch == "ae" and self.c.ae_pred_w > 0
+
     def _potential_channels(self) -> int:
         """psi (1) / Psi (3) under curl, else the field channels."""
         if not self.c.use_curl or self.manifest.num_channels == 1:
@@ -184,13 +241,22 @@ class Trainer:
     def curl_active(self) -> bool:
         return self.c.use_curl and self.manifest.num_channels > 1
 
-    def _build_model(self) -> GeneratorBE:
-        c = self.c
-        return GeneratorBE(
-            output_shape=tuple(self.manifest.resolution)
-            + (self._potential_channels(),),
-            num_param=self.num_param, filters=c.filters,
-            num_conv=c.num_conv, repeat=c.repeat, compute_dtype=self.dtype)
+    def _build_model(self) -> torch.nn.Module:
+        c, m = self.c, self.manifest
+        out_shape = tuple(m.resolution) + (self._potential_channels(),)
+        if c.arch == "de":
+            return GeneratorBE(out_shape, num_param=self.num_param,
+                               filters=c.filters, num_conv=c.num_conv,
+                               repeat=c.repeat, compute_dtype=self.dtype)
+        if c.arch == "ae":
+            return Autoencoder(
+                out_shape, in_channels=m.num_channels, z_num=c.z_num,
+                filters=c.filters, num_conv=c.num_conv, repeat=c.repeat,
+                compute_dtype=self.dtype, num_param=self.num_param,
+                pred_hidden=c.ae_pred_hidden if c.ae_pred_w > 0 else 0)
+        return LatentIntegrator(z_num=c.z_num, num_param=self.num_param,
+                                hidden=c.nn_hidden, depth=c.nn_depth,
+                                history=c.nn_history)
 
     # ------------------------------------------------------------------
     # training
@@ -204,24 +270,81 @@ class Trainer:
         return make_optimizer(self.model.parameters(), self.c.beta1,
                               self.c.beta2)
 
-    def _loss_fn(self, model: torch.nn.Module, x: torch.Tensor,
-                 y: torch.Tensor) -> tuple[torch.Tensor, dict]:
-        """``(loss, {"loss_field", "loss_jac"})`` of ``model`` on the batch
-        (fields ``x``, normalized params ``y``), as JAX's ``_loss_fn``."""
+    def _loss_fn(self, model: torch.nn.Module, a: torch.Tensor,
+                 b: torch.Tensor, step: int = 0) -> tuple[torch.Tensor, dict]:
+        """``(loss, aux)`` of ``model`` on one batch, as JAX's ``_loss_fn``:
+        fields ``a`` and normalized params ``b`` ("de", "ae"), or a code
+        window ``a`` ``[W, B, z_num]`` and its parameters ``b`` ``[W, B,
+        P]`` ("nn", whose ``--nn_noise`` stream is drawn for ``step``, the
+        updates done before this one)."""
         c = self.c
-        loss, aux = losses.generator_loss(
-            model(y), x, self.curl_active, c.w1, c.w2, c.relative_loss,
-            c.loss_norm)
+        if c.arch == "de":
+            loss, aux = losses.generator_loss(
+                model(b), a, self.curl_active, c.w1, c.w2, c.relative_loss,
+                c.loss_norm)
+            del aux["pred"]
+            return loss, aux
+        if c.arch == "ae":
+            return self._ae_loss(model, a, b)
+        return self._nn_loss(model, a, b, step)
+
+    def _ae_loss(self, model: torch.nn.Module, x: torch.Tensor,
+                 y: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        c, n = self.c, self.num_param
+        out, z = model(x)
+        loss, aux = losses.autoencoder_loss(
+            out, z, x, y, self.curl_active, n, c.w1, c.w2, c.w3,
+            c.relative_loss, c.loss_norm)
         del aux["pred"]
+        if c.ae_pred_w > 0:
+            # A pair batch [x_t ; x_{t+1}]: the predictor's one-step error
+            # reaches the encoder through both halves' codes.
+            if z.shape[0] % 2:
+                raise ValueError(f"--ae_pred_w needs a [2B] pair batch, got "
+                                 f"{z.shape[0]} rows")
+            nb = z.shape[0] // 2
+            zt, zt1, pt, pt1 = z[:nb], z[nb:], y[:nb], y[nb:]
+            # The parameter block is pinned to the true trajectory.
+            z_in = torch.cat([pt, zt[:, n:]], dim=-1)
+            dz = model.predict(z_in, pt1 - pt)
+            pl = torch.mean(torch.square(zt[:, n:] + dz - zt1[:, n:]))
+            loss = loss + c.ae_pred_w * pl
+            aux["loss_pred"] = pl
         return loss, aux
 
-    def _train_step(self, x: torch.Tensor,
-                    y: torch.Tensor) -> dict[str, torch.Tensor]:
+    def _nn_loss(self, model: torch.nn.Module, z_seq: torch.Tensor,
+                 p_seq: torch.Tensor, step: int) -> tuple[torch.Tensor, dict]:
+        c, h = self.c, self.c.nn_history
+        gen = (noise_generator(c.seed, step, z_seq.device)
+               if c.nn_noise > 0 else None)
+        # History H > 1 seeds the rollout with the window's first H codes.
+        z_pred = rollout(model, z_seq[:h] if h > 1 else z_seq[0], p_seq,
+                         self.num_param, remat=c.remat_rollout,
+                         noise_std=c.nn_noise, generator=gen, history=h)
+        loss, aux = losses.latent_window_loss(z_pred, z_seq)
+        if c.nn_field_w > 0:
+            # Decode nn_field_frames evenly spaced window positions (the
+            # first H are the shared seed codes) through the frozen decoder.
+            ae, w = self._ae_trainer(), z_pred.shape[0]
+            k = int(min(max(1, c.nn_field_frames), w - h))
+            t_idx = np.linspace(h, w - 1, k).astype(int)
+            zp = z_pred[t_idx].reshape(-1, z_pred.shape[-1])
+            zt = z_seq[t_idx].reshape(-1, z_seq.shape[-1])
+            with torch.no_grad():
+                target = ae.apply_decode(zt)
+            fl, _ = losses.field_loss(ae.apply_decode(zp), target, c.w1,
+                                      c.w2, c.relative_loss, c.loss_norm)
+            loss = loss + c.nn_field_w * fl
+            aux["loss_nnfield"] = fl
+        return loss, aux
+
+    def _train_step(self, a: torch.Tensor,
+                    b: torch.Tensor) -> dict[str, torch.Tensor]:
         """One Adam update at lr(updates done so far); the step's losses as
         device tensors."""
         set_lr(self.opt, self.lr_fn(self.step))
         self.opt.zero_grad(set_to_none=True)
-        loss, aux = self._loss_fn(self.model, x, y)
+        loss, aux = self._loss_fn(self.model, a, b, self.step)
         loss.backward()
         if self.c.grad_clip > 0:
             clip_by_global_norm_([p.grad for p in self.model.parameters()],
@@ -250,6 +373,41 @@ class Trainer:
             self._device_cache = (x, y.to(self.device))
         return self._device_cache
 
+    def _batch_source(self, num_steps: int, start: int):
+        """``batch(step)`` -> the (a, b) tensors of global step ``step`` on
+        the device, for steps ``start + 1 .. start + num_steps`` in
+        order."""
+        c = self.c
+        if c.arch == "nn":
+            def batch(step: int) -> tuple[torch.Tensor, torch.Tensor]:
+                z, p = self.codes.window_batch(c.batch_size, c.w_num,
+                                               step=step)
+                return (torch.from_numpy(z).to(self.device),
+                        torch.from_numpy(p).to(self.device))
+            return batch
+        if c.device_data_cache:
+            cache_x, cache_y = self._load_device_cache()
+            # Draws over the train subset (pair mode: frames with a
+            # same-scene successor, gathering [t-rows ; (t+1)-rows]).
+            pool = (self.bm.train_pair_indices if self.pair_mode
+                    else self.bm.train_indices)
+
+            def batch(step: int) -> tuple[torch.Tensor, torch.Tensor]:
+                idx = pool[step_batch_indices(c.seed, step, len(pool),
+                                              c.batch_size)]
+                if self.pair_mode:
+                    idx = np.concatenate([idx, self.bm.ds.successor[idx]])
+                idx = torch.from_numpy(idx).to(self.device)
+                return cache_x[idx].float(), cache_y[idx]
+            return batch
+        it = self.bm.batches(num_steps, start_step=start)
+
+        def batch(step: int) -> tuple[torch.Tensor, torch.Tensor]:
+            x, y = next(it)
+            return (torch.from_numpy(x).to(self.device),
+                    torch.from_numpy(y).to(self.device))
+        return batch
+
     def train(self, num_steps: int | None = None) -> dict:
         """Train ``num_steps`` (default ``--max_step``) more steps; returns
         the last logged losses."""
@@ -265,22 +423,7 @@ class Trainer:
                      "steps_per_call=%d)", num_steps, rounded, k)
             num_steps = rounded
         start = self.step
-        if c.device_data_cache:
-            cache_x, cache_y = self._load_device_cache()
-            pool = self.bm.train_indices
-
-            def batch(step: int) -> tuple[torch.Tensor, torch.Tensor]:
-                idx = torch.from_numpy(pool[step_batch_indices(
-                    c.seed, step, len(pool), c.batch_size)]).to(self.device)
-                return cache_x[idx].float(), cache_y[idx]
-        else:
-            it = self.bm.batches(num_steps, start_step=start)
-
-            def batch(step: int) -> tuple[torch.Tensor, torch.Tensor]:
-                x, y = next(it)
-                return (torch.from_numpy(x).to(self.device),
-                        torch.from_numpy(y).to(self.device))
-
+        batch = self._batch_source(num_steps, start)
         last: dict[str, float] = {}
         t0 = time.time()
         seen = 0
@@ -326,9 +469,9 @@ class Trainer:
         """Write ``checkpoint/<step>/`` (renamed into place whole), update
         ``<run>/weights.npz`` and keep the newest ``CKPT_KEEP``.
 
-        The data order is a pure function of (seed, step), so params, Adam
-        state and step are the whole state: a resumed run replays the
-        uninterrupted one bit for bit."""
+        The data order (and the ``--nn_noise`` stream) is a pure function
+        of (seed, step), so params, Adam state and step are the whole
+        state: a resumed run replays the uninterrupted one bit for bit."""
         path = os.path.join(self.ckpt_dir, str(self.step))
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -370,17 +513,26 @@ class Trainer:
             return 0
 
     def _dump_samples(self, step: int) -> None:
-        """``sample/<step>.png``: 8 fields along the diagonal of the
-        parameter box (a sample dump never stops training)."""
+        """``sample/<step>.png`` (a sample dump never stops training): "de"
+        8 fields along the diagonal of the parameter box; "ae" 4 training
+        frames above their reconstructions; "nn" none."""
         try:
-            m, n = self.manifest, 8
-            p = np.stack([m.normalize_params(
-                [np.interp(i, [0, n - 1], r) for r in m.param_ranges])
-                for i in range(n)])
+            m = self.manifest
+            path = os.path.join(self.run_dir, "sample", f"{step:07d}.png")
             mode = "levelset" if m.num_channels == 1 else "vorticity"
-            save_image_grid(
-                os.path.join(self.run_dir, "sample", f"{step:07d}.png"),
-                list(self.generate(p)), mode=mode)
+            if self.c.arch == "de":
+                n = 8
+                p = np.stack([m.normalize_params(
+                    [np.interp(i, [0, n - 1], r) for r in m.param_ranges])
+                    for i in range(n)])
+                save_image_grid(path, list(self.generate(p)), mode=mode)
+            elif self.c.arch == "ae":
+                # Own RNG stream: the prefetch worker draws training
+                # batches concurrently.
+                x, _ = self.bm.sample_batch(rng=self._dump_rng)
+                x = x[:4]
+                save_image_grid(path, list(x) + list(self.reconstruct(x)),
+                                ncol=4, mode=mode)
         except Exception as e:  # noqa: BLE001 - log and keep training
             log.warning("sample dump failed at step %d: %r", step, e)
 
@@ -400,43 +552,94 @@ class Trainer:
         load_flax_npz(path, self.model)
         return path
 
-    def apply(self, p_norm: torch.Tensor) -> torch.Tensor:
-        """Normalized params ``[B, P]`` -> fields ``[B, *res, C]`` on the
-        model's device (curl applied when active)."""
-        out = self.model(p_norm)
+    def _field(self, out: torch.Tensor) -> torch.Tensor:
+        """The network's output as a field: its curl when active."""
         return losses.apply_curl(out) if self.curl_active else out
+
+    def apply(self, p_norm: torch.Tensor) -> torch.Tensor:
+        """Arch "de": normalized params ``[B, P]`` -> fields ``[B, *res,
+        C]`` on the model's device (curl applied when active)."""
+        return self._field(self.model(p_norm))
+
+    def apply_decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Arch "ae": codes ``[B, z_num]`` -> fields ``[B, *res, C]`` on the
+        model's device (curl applied when active)."""
+        return self._field(self.model.decode(z))
+
+    def _numpy_call(self, fn, arr: np.ndarray) -> np.ndarray:
+        x = torch.from_numpy(np.asarray(arr, np.float32)).to(self.device)
+        with torch.inference_mode():
+            return fn(x).float().cpu().numpy()
 
     def generate(self, p_norm: np.ndarray) -> np.ndarray:
         """Params ``[B, P]`` (normalized) -> fields (normalized), numpy."""
-        p = torch.from_numpy(np.asarray(p_norm, np.float32)).to(self.device)
-        with torch.inference_mode():
-            return self.apply(p).float().cpu().numpy()
+        return self._numpy_call(self.apply, p_norm)
 
-    def evaluate(self, num_samples: int = 64) -> dict:
-        """Generated-vs-dataset field L2 / rmse over a uniform frame sample
-        of the held-out scenes when --eval_holdout_scenes is set, else of
-        the whole dataset (the de branch of the JAX ``Trainer.evaluate``)."""
-        holdout = bool(self.c.eval_holdout_scenes)
-        pool = (self.bm.eval_indices if holdout
+    def reconstruct(self, x: np.ndarray) -> np.ndarray:
+        """Arch "ae": fields -> their reconstructions (normalized), numpy."""
+        return self._numpy_call(lambda t: self._field(self.model(t)[0]), x)
+
+    def encode(self, x: np.ndarray) -> np.ndarray:
+        """Arch "ae": fields (normalized) -> codes ``[B, z_num]``, numpy."""
+        return self._numpy_call(self.model.encode, x)
+
+    def decode(self, z: np.ndarray) -> np.ndarray:
+        """Arch "ae": codes -> fields (normalized), numpy."""
+        return self._numpy_call(self.apply_decode, z)
+
+    def _ae_trainer(self) -> Trainer | None:
+        """The AE behind ``--ae_load_path`` (built once from its own
+        ``params.json``, weights from its ``weights.npz``): the frozen
+        decoder of "nn" field-space training and evaluation."""
+        if not self.c.ae_load_path:
+            return None
+        if self._eval_ae is None:
+            ae = Trainer(load_config(self.c.ae_load_path),
+                         run_dir=self.c.ae_load_path, device=self.device,
+                         save_cfg=False)
+            ae.restore_weights()
+            self._eval_ae = ae
+        return self._eval_ae
+
+    def _ae_decode_fn(self):
+        """Codes -> fields (numpy) through ``--ae_load_path``'s decoder."""
+        ae = self._ae_trainer()
+        return None if ae is None else ae.decode
+
+    def evaluate(self, num_samples: int = 64, decode_fn=None,
+                 profile_scenes: int = 1, pool: str = "auto") -> dict:
+        """Model-quality metrics, as the JAX ``Trainer.evaluate``: "de"
+        generated vs dataset fields, "ae" reconstructions and the code's
+        parameter error, over a uniform frame sample; "nn" the latent
+        rollout (:meth:`_evaluate_nn`).  ``pool`` "auto" samples the
+        held-out scenes when --eval_holdout_scenes is set, else the whole
+        dataset; "train" only the training scenes."""
+        if self.c.arch == "nn":
+            return self._evaluate_nn(num_samples, decode_fn, profile_scenes,
+                                     pool)
+        holdout = bool(self.c.eval_holdout_scenes) and pool != "train"
+        pool = (self.bm.train_indices if pool == "train"
+                else self.bm.eval_indices if holdout
                 else np.arange(len(self.bm.ds)))
         n = len(pool)
         idx = pool[np.linspace(0, n - 1, min(num_samples, n)).astype(int)]
         xs, ys = zip(*[self.bm.ds.get_normalized(int(i)) for i in idx])
         xs = np.stack(xs)
-        ys = np.stack(ys)
-        # Fixed-size padded chunks of test_batch_size, as the sweep runs.
+        out = {"num_samples": int(len(idx)), "holdout": holdout}
         bs = max(1, self.c.test_batch_size)
-        pad = (-len(ys)) % bs
-        padded = (np.concatenate([ys, np.repeat(ys[-1:], pad, 0)]) if pad
-                  else ys)
-        gen = np.concatenate([self.generate(padded[i:i + bs])
-                              for i in range(0, len(padded), bs)])[:len(ys)]
+        if self.c.arch == "de":
+            gen = padded_chunks(self.generate, np.stack(ys), bs)
+        else:
+            gen = padded_chunks(self.reconstruct, xs, bs)
+            z = padded_chunks(self.encode, xs, bs)
+            p = np.stack(ys)[:, :self.num_param]
+            out["param_mse"] = float(
+                np.mean((z[:, :self.num_param] - p) ** 2))
         l2s = np.array([normalized_l2(g, x) for g, x in zip(gen, xs)])
-        out = {"num_samples": int(len(idx)), "holdout": holdout,
-               "l2_mean": float(l2s.mean()),
-               "l2_median": float(np.median(l2s)),
-               "l2_max": float(l2s.max()),
-               "rmse": float(np.sqrt(np.mean((gen - xs) ** 2)))}
+        out.update({"l2_mean": float(l2s.mean()),
+                    "l2_median": float(np.median(l2s)),
+                    "l2_max": float(l2s.max()),
+                    "rmse": float(np.sqrt(np.mean((gen - xs) ** 2)))})
         keys = self.bm.ds.scene_keys
         by_scene: dict[str, list[float]] = {}
         for i, l2 in zip(idx, l2s):
@@ -444,4 +647,76 @@ class Trainer:
         out["per_scene_l2_median"] = {
             k: round(float(np.median(v)), 4)
             for k, v in sorted(by_scene.items())}
+        return out
+
+    def _evaluate_nn(self, num_samples: int, decode_fn=None,
+                     profile_scenes: int = 1, pool: str = "auto") -> dict:
+        """Latent-rollout fidelity: each sampled scene's code advanced from
+        its start over the whole (shortest common) trajectory against the
+        encoded truth; with a decoder (``decode_fn`` or --ae_load_path)
+        also the decoded fields' rmse and the ``rollout_field_l2`` drift
+        profile against the simulated frames, beside the AE's own floor
+        (the true codes decoded)."""
+        holdout = bool(self.c.eval_holdout_scenes) and pool != "train"
+        pool = (self.codes.train_scene_indices if pool == "train"
+                else self.codes.eval_scene_indices if holdout
+                else np.arange(self.codes.num_scenes))
+        idx = pool[np.linspace(0, len(pool) - 1,
+                               min(num_samples, len(pool))).astype(int)]
+        t_min = min(self.codes.z[i].shape[0] for i in idx)
+        z_true = np.stack([self.codes.z[i][:t_min] for i in idx], 1)
+        p_seq = np.stack([self.codes.p[i][:t_min] for i in idx], 1)
+        h = self.c.nn_history
+        z0 = z_true[:h] if h > 1 else z_true[0]
+        with torch.inference_mode():
+            traj = rollout(self.model, torch.from_numpy(z0).to(self.device),
+                           torch.from_numpy(p_seq).to(self.device),
+                           self.num_param, history=h).cpu().numpy()
+        err = np.abs(traj - z_true)
+        out = {"num_samples": int(len(idx)), "holdout": holdout,
+               "z_mae": float(err.mean()),
+               "z_mae_final": float(err[-1].mean()),
+               "rollout_steps": int(traj.shape[0])}
+        decode_fn = decode_fn or self._ae_decode_fn()
+        if decode_fn is None:
+            return out
+        t_idx = np.linspace(0, traj.shape[0] - 1, 8).astype(int)
+        f_pred = decode_fn(traj[t_idx].reshape(-1, traj.shape[-1]))
+        f_true = decode_fn(z_true[t_idx].reshape(-1, traj.shape[-1]))
+        out["field_rmse"] = float(np.sqrt(np.mean((f_pred - f_true) ** 2)))
+        fk = "l" if self.manifest.data_type == "levelset" else "v"
+        bs = max(1, self.c.test_batch_size)
+
+        def decode_profile(zs: np.ndarray, scene: str) -> dict:
+            dec = padded_chunks(decode_fn, zs, bs)
+            return score_rollout_vs_sim(self.manifest.denormalize_field(dec),
+                                        self.c.dataset_dir, scene,
+                                        field_key=fk)
+
+        profs, floors = [], []
+        for k in range(min(max(1, profile_scenes), len(idx))):
+            scene = self.codes.scenes[int(idx[k])]
+            try:
+                prof = decode_profile(traj[:, k], scene)
+                floor = decode_profile(z_true[:, k], scene)
+            except FileNotFoundError:
+                continue  # a scene without raw frames: latent numbers only
+            profs.append(prof)
+            floors.append(floor)
+        if profs:
+            out["rollout_field_l2"] = profs[0]
+            out["ae_floor_field_l2"] = floors[0]
+            if len(profs) > 1:
+                out["rollout_field_l2_scenes"] = profs
+                out["ae_floor_field_l2_scenes"] = floors
+
+                def agg(ps: list[dict], key: str) -> float:
+                    return float(np.median([p[key] for p in ps]))
+                out["rollout_field_l2_agg"] = {
+                    "num_scenes": len(profs),
+                    **{key: agg(profs, key) for key in (
+                        "l2_median", "l2_firstq_median", "l2_lastq_median")},
+                    **{f"floor_{key}": agg(floors, key) for key in (
+                        "l2_median", "l2_firstq_median",
+                        "l2_lastq_median")}}
         return out

@@ -15,6 +15,7 @@ import torch
 
 from deepfluids_tpu_torch.config import Config
 from deepfluids_tpu_torch.data import Manifest, save_manifest
+from deepfluids_tpu_torch.infer import encode_dataset
 from deepfluids_tpu_torch.models import GeneratorBE, load_flax_npz
 from deepfluids_tpu_torch.ops import cuda_fd, fd
 from deepfluids_tpu_torch.train.losses import apply_curl
@@ -363,3 +364,82 @@ def test_train_step_3d_launch_counts(cuda_device, tmp_path):
                                      "curl3d_fused": 1, "curl3d_bwd": 1,
                                      "jacobian3d_fused": 2,
                                      "jacobian3d_bwd": 1}
+
+
+def _tiny_mov(tmp_path) -> str:
+    """A 2-scene x 4-frame set of 32x24 velocity with (src_x_pos, frame)
+    params; returns its data dir."""
+    ds = tmp_path / "data" / "tiny_mov"
+    save_manifest(Manifest(
+        param_names=["src_x_pos", "frame"],
+        param_ranges=[[0.2, 0.8], [0.0, 3.0]], num_scenes=2, num_frames=4,
+        resolution=[32, 24], num_channels=2, v_range=[-1.0, 1.0],
+        data_type="velocity"), str(ds))
+    os.makedirs(ds / "v")
+    rng = np.random.default_rng(16)
+    for k in range(8):
+        np.savez(ds / "v" / f"{k // 4}_{k % 4}.npz",
+                 x=rng.standard_normal((32, 24, 2)).astype(np.float32),
+                 y=np.array([0.2 + 0.6 * (k // 4), k % 4], np.float32))
+    return str(tmp_path / "data")
+
+
+def _mov_config(data_dir: str, **kw) -> Config:
+    return Config(**{**dict(arch="ae", data_dir=data_dir,
+                            dataset="tiny_mov", z_num=8, filters=8,
+                            num_conv=1, batch_size=4, num_worker=1,
+                            ae_pred_hidden=16,
+                            log_dir=os.path.dirname(data_dir)), **kw})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ae_pred_w", [0.0, 0.5])
+def test_ae_step_and_decode_launch_counts(cuda_device, tmp_path, ae_pred_w):
+    # One "ae" Trainer step (also on a --ae_pred_w pair batch) launches a
+    # "de" step's kernels; a decoded batch the curl once; the encoder none.
+    t = Trainer(_mov_config(_tiny_mov(tmp_path), ae_pred_w=ae_pred_w),
+                device=cuda_device)
+    x, y = t.bm.step_batch(1)
+    zeros = dict.fromkeys(cuda_fd.launch_counts, 0)
+    cuda_fd.reset_launch_counts()
+    aux = t._train_step(torch.from_numpy(x).to(cuda_device),
+                        torch.from_numpy(y).to(cuda_device))
+    torch.cuda.synchronize()
+    assert np.isfinite(float(aux["loss"]))
+    assert cuda_fd.launch_counts == {**zeros,
+                                     "curl2d_fused": 1, "curl2d_bwd": 1,
+                                     "jacobian2d_fused": 2,
+                                     "jacobian2d_bwd": 1}
+    cuda_fd.reset_launch_counts()
+    z = t.encode(x)
+    assert cuda_fd.launch_counts == zeros and z.shape == (len(x), 8)
+    fields = t.decode(np.repeat(z, 8, axis=0))
+    assert cuda_fd.launch_counts == {**zeros, "curl2d_fused": 1}
+    assert fields.shape == (8 * len(x), 32, 24, 2)
+    assert np.isfinite(fields).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nn_field_w", [0.0, 0.5])
+def test_nn_step_launch_counts(cuda_device, tmp_path, nn_field_w):
+    # An "nn" step launches no FD kernel; with --nn_field_w it decodes the
+    # predicted codes (the curl and its transpose) and the true ones (the
+    # curl, under no_grad) through the frozen AE, and takes the field
+    # loss's two jacobians and one jacobian transpose.
+    data = _tiny_mov(tmp_path)
+    ae = Trainer(_mov_config(data, tag="ae"), device=cuda_device)
+    ae.save_checkpoint()
+    encode_dataset(ae.encode, ae.c.dataset_dir, 8, batch_size=4)
+    t = Trainer(_mov_config(data, arch="nn", tag="nn", w_num=3,
+                            nn_field_w=nn_field_w, nn_field_frames=2,
+                            ae_load_path=ae.run_dir), device=cuda_device)
+    z, p = (torch.from_numpy(a).to(cuda_device)
+            for a in t.codes.window_batch(4, 3, step=1))
+    zeros = dict.fromkeys(cuda_fd.launch_counts, 0)
+    cuda_fd.reset_launch_counts()
+    aux = t._train_step(z, p)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(aux["loss"]))
+    want = {**zeros, "curl2d_fused": 2, "curl2d_bwd": 1,
+            "jacobian2d_fused": 2, "jacobian2d_bwd": 1} if nn_field_w else zeros
+    assert cuda_fd.launch_counts == want

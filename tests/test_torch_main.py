@@ -1,9 +1,12 @@
-"""The port's serving path end to end against the JAX package's.
+"""The port's CLI end to end against the JAX package's.
 
 A JAX ``de`` run is trained 3 steps on a tiny smoke dataset (as
 tests/test_main.py does), its params are exported to ``weights.npz``, and
 the JAX sweep and the port's ``main`` sweep the same grid from the same
-weights.  Fields must agree at normalized L2 < 1e-3, the repo's parity gate.
+weights.  The port's config #4 pipeline (``ae`` train, encode, ``nn``
+train, rollout) runs on the same dataset, and JAX's ``rollout_trajectory``
+rolls out the port's weights.  Fields must agree at normalized L2 < 1e-3,
+the repo's parity gate.
 """
 
 import inspect
@@ -113,6 +116,71 @@ def test_sweep_matches_jax(runs):
     assert result["eval"]["num_samples"] == want["num_samples"]
 
 
+def test_ae_nn_pipeline_matches_jax_rollout(runs):
+    """``ae`` train (with sample dumps) -> encode pass -> ``nn`` train ->
+    ``nn`` rollout through ``main``; JAX's ``rollout_trajectory`` on the
+    port's two ``weights.npz`` gives the fields of ``rollout.npz``."""
+    import jax
+    import jax.numpy as jnp
+
+    from deepfluids_tpu.data.manifest import load_manifest
+    from deepfluids_tpu.infer import rollout_trajectory
+    from deepfluids_tpu.models import Autoencoder, LatentIntegrator
+    from deepfluids_tpu.train.losses import apply_curl
+
+    env = runs["env"]
+    before = dict(cuda_fd.launch_counts)
+    torch_main(_port_cfg(env, arch="ae", tag="ae", test_step=2),
+               device="cpu")
+    ae_run = os.path.join(env["logs"], "tiny_ae")
+    assert os.listdir(os.path.join(ae_run, "sample")) == ["0000002.png"]
+    r = torch_main(_port_cfg(env, arch="ae", is_train=False,
+                             load_path=ae_run), device="cpu")
+    code_dir = os.path.join(env["data"], "tiny", "code8")
+    assert r == {"code_dir": code_dir}
+    assert len(os.listdir(code_dir)) == 4          # one file a scene
+    torch_main(_port_cfg(env, arch="nn", tag="nn", w_num=3), device="cpu")
+    nn_run = os.path.join(env["logs"], "tiny_nn")
+    with pytest.raises(SystemExit, match="ae_load_path"):
+        torch_main(_port_cfg(env, arch="nn", is_train=False,
+                             load_path=nn_run), device="cpu")
+    r = torch_main(_port_cfg(env, arch="nn", is_train=False,
+                             load_path=nn_run, ae_load_path=ae_run,
+                             test_frames=4), device="cpu")
+    assert cuda_fd.launch_counts == before, "CPU tensors launch no kernel"
+    out = os.path.join(nn_run, "test")
+    assert r["rollout_steps"] == 4 and r["out_dir"] == out
+    assert r["rollout_field_l2"]["rollout_steps"] == 4
+    assert os.path.exists(os.path.join(out, "rollout.gif"))
+    with np.load(os.path.join(out, "rollout.npz")) as d:
+        got_x, got_z = d["x"], d["z"]
+    assert got_x.shape == (4, 32, 32, 2) and np.isfinite(got_x).all()
+    assert got_z.shape == (4, 1, 8)
+
+    fae = Autoencoder(output_shape=(32, 32, 1), z_num=8, filters=8,
+                      num_conv=1, num_param=3)
+    ae_params = weights_io.import_npz(
+        os.path.join(ae_run, "weights.npz"),
+        fae.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 2)))["params"])
+    fnn = LatentIntegrator(z_num=8, num_param=3)
+    nn_params = weights_io.import_npz(
+        os.path.join(nn_run, "weights.npz"),
+        fnn.init(jax.random.PRNGKey(0), jnp.zeros((1, 8)),
+                 jnp.zeros((1, 3)))["params"])
+    first = sorted(os.listdir(code_dir))[0]
+    with np.load(os.path.join(code_dir, first)) as d:
+        z_seq, p_raw = d["z"], d["p"]
+    want_z, want_x = rollout_trajectory(
+        lambda q, zf, dp: fnn.apply({"params": q}, zf, dp), nn_params,
+        lambda z: apply_curl(fae.apply({"params": ae_params}, z,
+                                       method=fae.decode)),
+        z_seq[:1], p_raw[:4], load_manifest(os.path.join(env["data"],
+                                                         "tiny")),
+        decode_batch=8)
+    np.testing.assert_allclose(got_z, want_z, atol=1e-5)
+    assert normalized_l2(got_x, want_x[:, 0]) < 1e-3
+
+
 def test_missing_weights_names_the_export(runs, tmp_path):
     run = str(tmp_path / "no_weights")
     os.makedirs(run)
@@ -124,8 +192,10 @@ def test_missing_weights_names_the_export(runs, tmp_path):
 
 @pytest.mark.parametrize("kw,match", [
     ({"is_train": True, "augment_flip_x": True}, "Queue A item 9"),
-    ({"is_train": False, "arch": "ae"}, "Queue A item 7"),
-    ({"is_train": False, "arch": "nn"}, "Queue A item 8"),
+    ({"is_train": False, "arch": "ae", "spatial_shard": True},
+     "Queue A item 11"),
+    ({"is_train": False, "arch": "nn", "ae_load_path": "ae",
+      "decoder": "grid"}, "Queue A item 10"),
     ({"is_train": False, "decoder": "grid"}, "Queue A item 10"),
     ({"is_train": False, "embed_bands": 2}, "Queue A item 10"),
     ({"is_train": False, "spectral_modes": 4}, "Queue A item 10"),

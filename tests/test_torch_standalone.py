@@ -1,7 +1,7 @@
 """The port stands alone: it imports nothing of jax or of the JAX package,
 and its own copies of the JAX package's numpy-only modules (``config``,
-``data.manifest``, ``data.dataset``, ``data.native_npz``) behave as the
-originals on the same inputs.
+``data.manifest``, ``data.dataset``, ``data.native_npz``,
+``infer.score``) behave as the originals on the same inputs.
 """
 
 import dataclasses
@@ -16,10 +16,12 @@ from deepfluids_tpu import config as jconfig
 from deepfluids_tpu.data import dataset as jdataset
 from deepfluids_tpu.data import manifest as jmanifest
 from deepfluids_tpu.data import native_npz as jnative
+from deepfluids_tpu.infer import score as jscore
 from deepfluids_tpu_torch import config as tconfig
 from deepfluids_tpu_torch.data import dataset as tdataset
 from deepfluids_tpu_torch.data import manifest as tmanifest
 from deepfluids_tpu_torch.data import native_npz as tnative
+from deepfluids_tpu_torch.infer import score as tscore
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -228,3 +230,23 @@ def test_native_reader_builds_into_the_port():
     assert os.path.exists(path)
     assert os.path.dirname(os.path.dirname(path)) == os.path.join(
         REPO, "deepfluids_tpu_torch", "_build")
+
+
+# --- infer.score -----------------------------------------------------------
+
+@pytest.mark.parametrize("scene,frames", [("0_0", 4), ("2_1", 3),
+                                          ("1_2", 6)])
+def test_score_matches(tiny_dataset, scene, frames):
+    # A rollout of `frames` frames (more than the scene holds in the last
+    # case) scored against the scene's simulated frames.
+    x = np.random.default_rng(3).standard_normal(
+        (frames, 12, 10, 2)).astype(np.float32)
+    ours = tscore.score_rollout_vs_sim(x, tiny_dataset, scene)
+    assert ours == jscore.score_rollout_vs_sim(x, tiny_dataset, scene)
+    assert ours["rollout_steps"] == min(frames, 4)
+    np.testing.assert_array_equal(
+        tscore.load_scene_fields(tiny_dataset, scene),
+        jscore.load_scene_fields(tiny_dataset, scene))
+    for mod in (tscore, jscore):
+        with pytest.raises(FileNotFoundError):
+            mod.score_rollout_vs_sim(x, tiny_dataset, "9_9")
