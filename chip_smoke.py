@@ -3,11 +3,14 @@
     python3 chip_smoke.py          # from the repo root, one card, no args
 
 Drives the port's serving and training paths, 2D (configs #1/#2,
-smoke_pos21_size5) and 3D (config #5, smoke3_vel5_buo3), and config #4's
-autoencoder + latent integrator pipeline (smoke_mov200_f400), through the
-entry point a user calls and checks every kernel on the way.  Phases, one line
-each (or a few), each followed by its wall time; any failure raises and the
-script exits non-zero:
+smoke_pos21_size5), 3D (config #5, smoke3_vel5_buo3), config #3's liquid
+levelset (liquid_pos10_size4: no curl, so no FD kernel) and the 2D
+generator with its knobs (the grid decoder, the Fourier embedding, the
+spectral residuals, the x-mirror), and config #4's autoencoder + latent
+integrator pipeline (smoke_mov200_f400), through the entry point a user
+calls and checks every kernel on the way.  Phases, one line each (or a
+few), each followed by its wall time; any failure raises and the script
+exits non-zero:
 
   1. device and build: the card, its power limit, nvcc build of csrc/*.cu;
   2. each of the eight kernels against its plain PyTorch version on the
@@ -20,21 +23,25 @@ script exits non-zero:
      the plain ops;
   3. the generator goldens, 2D and 3D: Flax-init weights (tests/golden)
      through the port's GeneratorBE and the curl kernels, against JAX;
-  4. the serving path at full width, 2D and 3D:
+  4. the serving path at full width, 2D, 3D and liquid:
      ``deepfluids_tpu_torch.main.main`` on a synthetic dataset under the
      published manifest with the flagship GeneratorBE (bf16, seeded random
-     weights): 21 x 5 x 20 = 2100 fields of 128x96, and 5 x 3 x 8 = 120
-     fields of 32x64x112 (8 of the 250 frames, for the time limit); the
-     curl kernel must launch once per batch and nothing else;
-  6. the training path at full width, 2D and 3D: ``main --is_train True``
-     trains the flagship GeneratorBE (bf16, batch 8) on a learnable
-     synthetic set (the curl of a Gaussian potential blob moved by the
-     parameters), resumes from its last checkpoint with
-     ``--device_data_cache``, and serves a small grid from the run's
-     weights.npz; the loss must fall, sample PNGs must be written and every
-     kernel's launch count must be exact per step.  Then one f32 train
+     weights): 21 x 5 x 20 = 2100 fields of 128x96, 5 x 3 x 8 = 120
+     fields of 32x64x112 (8 of the 250 frames, for the time limit) and
+     10 x 4 x 20 = 800 levelsets of 128x96; the curl kernel must launch
+     once per batch and nothing else (the liquid path: nothing at all);
+  6. the training path at full width, 2D, 3D, liquid and the knobs:
+     ``main --is_train True`` trains the flagship GeneratorBE (bf16, batch
+     8) on a learnable synthetic set (the curl of a Gaussian potential
+     blob moved by the parameters; for the liquid, the signed distance to
+     a falling drop), resumes from its last checkpoint with
+     ``--device_data_cache`` (the liquid also with ``--augment_flip_x``),
+     and serves a small grid from the run's weights.npz; the loss must
+     fall, sample PNGs must be written and every kernel's launch count
+     must be exact per step (zero for the liquid).  Then one f32 train
      step through the kernels against the same step through the plain ops
-     (loss and every parameter's gradient);
+     (loss and every parameter's gradient), or, for the liquid, which has
+     no kernel, the card's step against the CPU's;
   7. config #4 (smoke_mov200_f400) at full width through ``main``: the
      autoencoder (filters 128, num_conv 4, z_num 16, bf16, batch 8) trains
      on a learnable synthetic moving-source set (16 scenes x 64 frames of
@@ -52,7 +59,14 @@ script exits non-zero:
      alone against its plain version and its bound (device time from the
      profiler, inputs cold; the 2D kernels also at [1,128,96], the floor
      of their launch configuration), config #4's AE step, encode pass,
-     integrator step and a 400-frame rollout, and profile lines by kernel.
+     integrator step and a 400-frame rollout, the liquid step (batch 8 and
+     64) and serving (batch 512), the knob step against the plain 2D step
+     (batch 8 and 64) with the kernels each launches, the x-mirror's cost,
+     and profile lines by kernel;
+  8. ``sweep_on_device`` over the full 2D grid (21 000 fields, 2 GB) at
+     batch 512, a batch against ``sweep_generator``, and its fields/s;
+  9. one forward of config #5's generator with every knob (random gains
+     and bases, f32, curl applied) on the card against the CPU.
 
 Then it prints the kernels as one JSON line, the card's name and power
 limit as nvidia-smi gives them, and, last, the ``{"ok": true, ...}`` line.
@@ -121,16 +135,29 @@ class MainPath:
     parity_batch: int            # batch of the f32 kernels-vs-plain step
     step_launches: dict          # kernel launches of one train step ...
     forward_launches: dict       # ... and of one generated batch
+    data_type: str = "velocity"  # or "levelset" (config #3: no curl)
+    train_flags: tuple = ()      # extra flags of every phase 6 run
+    resume_flags: tuple = ("--device_data_cache", "true")
+
+    @property
+    def levelset(self) -> bool:
+        return self.data_type == "levelset"
 
     @property
     def potential(self) -> int:
-        """Channels of the generator's output: psi (2D) or Psi (3D)."""
+        """Channels of the generator's output: psi (2D), Psi (3D), or the
+        levelset itself."""
         return 1 if len(self.resolution) == 2 else 3
 
     @property
     def channels(self) -> int:
-        """Velocity channels: one per spatial axis."""
-        return len(self.resolution)
+        """Field channels: one per spatial axis, or the levelset's one."""
+        return 1 if self.levelset else len(self.resolution)
+
+    @property
+    def field_key(self) -> str:
+        """The dataset's field directory."""
+        return "l" if self.levelset else "v"
 
 
 # Kernel launches of one train step (the curl, its backward, the jacobian
@@ -156,7 +183,32 @@ PATH_3D = MainPath(
     step_launches={"curl3d_fused": 1, "curl3d_bwd": 1,
                    "jacobian3d_fused": 2, "jacobian3d_bwd": 1},
     forward_launches={"curl3d_fused": 1})
-PATHS = (PATH_2D, PATH_3D)
+# Config #3 (liquid_pos10_size4: 128x96 levelset, drop x position x drop
+# radius, 200 frames, the published 10 x 4 grid): no curl, the loss's
+# jacobian term the levelset's gradient in plain torch, so no FD kernel
+# anywhere.  Phase 6 resumes with the device cache and the x-mirror.
+PATH_LIQ = MainPath(
+    name="liquid", dataset="liquid_pos10_size4", resolution=(128, 96),
+    param_names=("drop_x_pos", "drop_radius", "frame"),
+    param_ranges=((0.25, 0.75), (0.06, 0.15), (0.0, 199.0)),
+    param_counts=(10, 4), num_frames=200, serve_counts="10,4",
+    serve_frames=20, train_steps=200, resume_steps=300, log_step=20,
+    save_step=100, parity_batch=8, step_launches={}, forward_launches={},
+    data_type="levelset", train_flags=("--data_type", "levelset"),
+    resume_flags=("--device_data_cache", "true", "--augment_flip_x",
+                  "true"))
+# The generator's knobs on the 2D smoke set at the flagship width: the
+# grid decoder (levels 4, features 4, rank 8), the Fourier embedding and
+# the spectral residuals (8 each) and the x-mirror; a step launches a 2D
+# step's kernels, a served batch the curl.  Not served by phase 4: phase 6
+# serves the trained run.
+KNOB_FLAGS = ("--decoder", "grid", "--grid_levels", "4", "--grid_features",
+              "4", "--grid_rank", "8", "--embed_bands", "8",
+              "--spectral_modes", "8", "--augment_flip_x", "true")
+PATH_KNOBS = dataclasses.replace(
+    PATH_2D, name="knobs", serve_counts="", serve_frames=0, train_steps=100,
+    resume_steps=150, log_step=10, save_step=50, train_flags=KNOB_FLAGS)
+PATHS = (PATH_2D, PATH_3D, PATH_LIQ, PATH_KNOBS)
 # The flagship width of all paths (the config.py defaults).
 FLAGSHIP = {"filters": 128, "num_conv": 4}
 
@@ -205,15 +257,15 @@ PATH_MOV = LatentPath(
 # name -> (csrc file, the TPU kernel it replaces, its inputs' channels, the
 # spatial dims it takes)
 KERNELS = {
-    "curl2d_fused": ("fd2d.cu", "deepfluids_tpu/ops/pallas_fd.py:98", [1], 2),
-    "jacobian2d_fused": ("fd2d.cu", "deepfluids_tpu/ops/pallas_fd.py:143",
+    "curl2d_fused": ("fd2d.cu", "deepfluids_tpu/ops/pallas_fd.py:99", [1], 2),
+    "jacobian2d_fused": ("fd2d.cu", "deepfluids_tpu/ops/pallas_fd.py:144",
                          [2], 2),
     "curl2d_bwd": ("fd2d.cu", "deepfluids_tpu/ops/pallas_fd.py:323", [2], 2),
     "jacobian2d_bwd": ("fd2d.cu", "deepfluids_tpu/ops/pallas_fd.py:387",
                        [4, 1], 2),
-    "curl3d_fused": ("fd3d.cu", "deepfluids_tpu/ops/pallas_fd.py:214", [3],
+    "curl3d_fused": ("fd3d.cu", "deepfluids_tpu/ops/pallas_fd.py:215", [3],
                      3),
-    "jacobian3d_fused": ("fd3d.cu", "deepfluids_tpu/ops/pallas_fd.py:255",
+    "jacobian3d_fused": ("fd3d.cu", "deepfluids_tpu/ops/pallas_fd.py:256",
                          [3], 3),
     "curl3d_bwd": ("fd3d.cu", "deepfluids_tpu/ops/pallas_fd.py:470", [3], 3),
     "jacobian3d_bwd": ("fd3d.cu", "deepfluids_tpu/ops/pallas_fd.py:520",
@@ -556,7 +608,7 @@ def save_path_manifest(path: MainPath, ds: str,
         param_ranges=[list(r) for r in path.param_ranges],
         num_scenes=math.prod(path.param_counts), num_frames=path.num_frames,
         resolution=list(path.resolution), num_channels=path.channels,
-        v_range=list(v_range), data_type="velocity",
+        v_range=list(v_range), data_type=path.data_type,
         param_counts=list(path.param_counts)), ds)
 
 
@@ -583,18 +635,19 @@ def make_serving_run(root: str, path: MainPath, seed: int = 0,
     data_dir = os.path.join(root, "data")
     ds = os.path.join(data_dir, path.dataset)
     save_path_manifest(path, ds)
-    os.makedirs(os.path.join(ds, "v"))
+    os.makedirs(os.path.join(ds, path.field_key))
     lo = [r[0] for r in path.param_ranges]
     for k in range(files):
         scene, frame = divmod(k, 3)
         np.savez_compressed(
-            os.path.join(ds, "v", f"{scene}_0_{frame}.npz"),
+            os.path.join(ds, path.field_key, f"{scene}_0_{frame}.npz"),
             x=rng.standard_normal(tuple(path.resolution) + (
                 path.channels,)).astype(np.float32),
             y=np.array([lo[0] + 0.03 * scene, lo[1], frame], np.float32))
     run = os.path.join(root, f"run_{path.name}")
     save_config(Config(data_dir=data_dir, dataset=path.dataset,
-                       compute_dtype="bfloat16", **FLAGSHIP), run)
+                       data_type=path.data_type, compute_dtype="bfloat16",
+                       **FLAGSHIP), run)
     # Flax-layout weights, lecun-normal-scaled, zero biases (Flax's init).
     weights = {}
     for key, shape in flax_shapes(flagship_model(path)).items():
@@ -627,8 +680,8 @@ def phase_serving(device, root: str, path: MainPath) -> dict:
     cfg = get_config(["--is_train", "False", "--load_path", run,
                       "--test_counts", counts, "--test_frames", str(frames)])
     n_fields = math.prod(int(c) for c in counts.split(",")) * frames
-    n_data = len(glob.glob(os.path.join(root, "data", path.dataset, "v",
-                                        "*.npz")))
+    n_data = len(glob.glob(os.path.join(root, "data", path.dataset,
+                                        path.field_key, "*.npz")))
     bs = cfg.test_batch_size
     batches = -(-n_fields // bs) + -(-min(128, n_data) // bs)
     expect = expected_launches({k: n * batches for k, n in
@@ -643,8 +696,9 @@ def phase_serving(device, root: str, path: MainPath) -> dict:
     launches = dict(cuda_fd.launch_counts)
     if launches != expect:
         raise AssertionError(f"the {path.name} serving path launched "
-                             f"{launches}, expected {expect}: the curl once "
-                             f"per batch ({batches}) and nothing else")
+                             f"{launches}, expected {expect}: "
+                             f"{path.forward_launches} per batch "
+                             f"({batches}) and nothing else")
 
     out_dir = os.path.join(run, "test")
     files = sorted(glob.glob(os.path.join(out_dir, "*.npz")))
@@ -663,14 +717,16 @@ def phase_serving(device, root: str, path: MainPath) -> dict:
     if not pngs or not os.path.exists(os.path.join(out_dir, "scene0.gif")):
         raise AssertionError("PNG / GIF artifacts missing")
 
-    # The first batch again, through the plain curl: same fields.
+    # The first batch again, through the plain curl (none for a levelset):
+    # same fields.
     model = flagship_model(path)
     load_flax_npz(os.path.join(run, "weights.npz"), model)
     model.to(device)
     manifest = load_manifest(os.path.join(root, "data", path.dataset))
     raw = param_grid(manifest, [int(c) for c in counts.split(",")], frames)
     p = torch.from_numpy(manifest.normalize_params(raw[:bs])).to(device)
-    curl = fd.curl2d if path.potential == 1 else fd.curl3d
+    curl = (lambda out: out) if path.levelset else (
+        fd.curl2d if path.potential == 1 else fd.curl3d)
     with torch.inference_mode():
         ref = manifest.denormalize_field(curl(model(p)).cpu().numpy())
     torch.backends.cudnn.deterministic = False
@@ -680,7 +736,10 @@ def phase_serving(device, root: str, path: MainPath) -> dict:
     if not l2 < TOL_PARITY:
         raise AssertionError(f"sweep fields vs plain curl: L2 {l2} >= "
                              f"{TOL_PARITY}")
-    curl_name = next(iter(path.forward_launches))
+    curl_name = next(iter(path.forward_launches), None)
+    what = (f"{curl_name} launches {launches[curl_name]} = {batches} "
+            f"batches, no other kernel" if curl_name else
+            f"no FD kernel in {batches} batches (no curl)")
     cut = ("" if frames == path.num_frames else
            f" ({frames} of the {path.num_frames} frames, cut for the time "
            f"limit)")
@@ -688,10 +747,9 @@ def phase_serving(device, root: str, path: MainPath) -> dict:
           f"--test_counts {counts} --test_frames {frames}{cut}: {n_fields} "
           f"fields of {'x'.join(map(str, field_shape))}, {len(pngs)} PNGs + "
           f"GIF in {secs:.2f} s ({n_fields / secs:.1f} fields/s end to end "
-          f"incl. build/load/eval/writes); {curl_name} launches "
-          f"{launches[curl_name]} = {batches} batches, no other kernel; eval "
-          f"l2_mean {ev['l2_mean']:.4f}; sweep vs plain-curl L2 {l2:.2e}",
-          flush=True)
+          f"incl. build/load/eval/writes); {what}; eval l2_mean "
+          f"{ev['l2_mean']:.4f}; sweep vs recomputation through the plain "
+          f"ops L2 {l2:.2e}", flush=True)
     return {"launches": launches, "serving_s": secs, "fields": n_fields,
             "weights": os.path.join(run, "weights.npz")}
 
@@ -748,19 +806,47 @@ def _train_fields_3d(path: MainPath):
                        np.array([vel, buo, frame], np.float32))
 
 
+def _train_fields_liquid(path: MainPath):
+    """(file name, field, params) of config #3's training set: a 128x96
+    levelset (``path.resolution``), the signed distance to a falling drop
+    (a disc whose x position and radius are (drop_x_pos, drop_radius) and
+    whose height falls with the frame) united with a pool at the bottom;
+    4 positions x 4 radii of the published 10 x 4 grid, 16 frames each
+    (256 of the published 8 000).  The drop's centre is ``drop_x_pos`` of
+    the width, so the x-mirror maps a scene onto the one at 1 - x."""
+    h, w = path.resolution
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, w / h, w),
+                         indexing="ij")
+    positions = np.linspace(*path.param_ranges[0], path.param_counts[0])
+    radii = np.linspace(*path.param_ranges[1], path.param_counts[1])
+    frames = 16
+    for i in (0, 3, 6, 9):
+        for j in range(4):
+            for f in range(frames):
+                frame = 199.0 * f / (frames - 1)
+                cy = 0.85 - 0.6 * frame / 199.0
+                drop = np.hypot(xx - positions[i] * w / h, yy - cy) - radii[j]
+                yield (f"{i}_{j}_{f}.npz",
+                       np.minimum(drop, yy - 0.15)[..., None].astype(
+                           np.float32),
+                       np.array([positions[i], radii[j], frame], np.float32))
+
+
 def make_train_dataset(root: str, path: MainPath) -> str:
     """A learnable synthetic dataset of ``path``'s shape under its published
     manifest (v_range from the fields); its data dir."""
     data_dir = os.path.join(root, f"train_data_{path.name}")
     ds = os.path.join(data_dir, path.dataset)
-    os.makedirs(os.path.join(ds, "v"))
-    fields = _train_fields_2d if path.potential == 1 else _train_fields_3d
-    vmax = 0.0
+    os.makedirs(os.path.join(ds, path.field_key))
+    fields = (_train_fields_liquid if path.levelset else
+              _train_fields_2d if path.potential == 1 else _train_fields_3d)
+    lo = hi = 0.0
     for name, x, y in fields(path):
-        vmax = max(vmax, float(np.abs(x).max()))
-        np.savez(os.path.join(ds, "v", name), x=x, y=y)
-    save_path_manifest(path, ds, (-4.0, 4.0) if path.potential == 1
-                       else (-vmax, vmax))
+        lo, hi = min(lo, float(x.min())), max(hi, float(x.max()))
+        np.savez(os.path.join(ds, path.field_key, name), x=x, y=y)
+    vmax = max(-lo, hi)
+    save_path_manifest(path, ds, (lo, hi) if path.levelset else
+                       (-4.0, 4.0) if path.potential == 1 else (-vmax, vmax))
     return data_dir
 
 
@@ -788,7 +874,7 @@ def phase_train(device, root: str, path: MainPath) -> dict:
              "--save_step", str(path.save_step),
              "--test_step", str(path.save_step),
              "--num_worker", "4", "--filters", str(FLAGSHIP["filters"]),
-             "--num_conv", str(FLAGSHIP["num_conv"])]
+             "--num_conv", str(FLAGSHIP["num_conv"]), *path.train_flags]
     run = os.path.join(logs, f"{path.dataset}_{tag}")
     n0, n1, save = path.train_steps, path.resume_steps, path.save_step
 
@@ -801,7 +887,7 @@ def phase_train(device, root: str, path: MainPath) -> dict:
     for argv, steps, dumps in (
             (flags + ["--max_step", str(n0)], n0, n0 // save),
             (flags + ["--max_step", str(n1), "--load_path", run,
-                      "--device_data_cache", "true"],
+                      *path.resume_flags],
              n1 - n0, n1 // save - n0 // save)):
         _, secs, launches = _drive(
             device, argv, per_step(steps, dumps),
@@ -837,8 +923,8 @@ def phase_train(device, root: str, path: MainPath) -> dict:
                 raise AssertionError(f"bad artifact {f}")
     # one sweep batch of 24 fields and ceil(min(128, files) / 32) evaluate
     # batches
-    n_data = len(glob.glob(os.path.join(data_dir, path.dataset, "v",
-                                        "*.npz")))
+    n_data = len(glob.glob(os.path.join(data_dir, path.dataset,
+                                        path.field_key, "*.npz")))
     batches = 1 + -(-min(128, n_data) // 32)
     want = expected_launches({k: batches * n for k, n in
                               path.forward_launches.items()})
@@ -848,11 +934,13 @@ def phase_train(device, root: str, path: MainPath) -> dict:
     rate = {"stream": rows[n0 // path.log_step - 1]["steps_per_sec"],
             "cache": rows[-1]["steps_per_sec"]}
     nonzero = {k: v for k, v in runs[0]["launches"].items() if v}
+    extra = " ".join(path.train_flags)
     print(f"phase 6 training path {path.name.upper()}: ok  main() --is_train "
-          f"True flagship GeneratorBE bf16 batch 8 on {n_data} synthetic "
-          f"frames (made in {data_s:.2f} s): {n0} steps in "
-          f"{runs[0]['secs']:.2f} s, resumed at step {n0} with "
-          f"--device_data_cache to {n1} in {runs[1]['secs']:.2f} s; loss "
+          f"True flagship GeneratorBE bf16 batch 8{' ' + extra if extra else ''}"
+          f" on {n_data} synthetic frames (made in {data_s:.2f} s): {n0} "
+          f"steps in {runs[0]['secs']:.2f} s, resumed at step {n0} with "
+          f"{' '.join(path.resume_flags)} to {n1} in {runs[1]['secs']:.2f} "
+          f"s; loss "
           f"{first:.4f} (step {path.log_step}) -> {last:.4f} (step {n0}) -> "
           f"{rows[-1]['loss']:.4f} (step {n1}); launches of the first run "
           f"{nonzero} = {path.step_launches} per step + "
@@ -915,6 +1003,69 @@ def phase_train_parity(device, train: dict, path: MainPath) -> None:
           f"loss kernels {lk!r} vs plain {lp!r}; every parameter's gradient "
           f"within {err[worst]:.2e} ({worst}) of the plain one, relative to "
           f"its largest entry (tol {TOL_GRAD})", flush=True)
+
+
+def phase_cpu_parity(device, train: dict, path: MainPath) -> None:
+    """A path without kernels (config #3): one f32 train step of the
+    trained run on the card (TF32 off, deterministic cuDNN) against the
+    same step on the CPU in this process: the loss within 1e-5 relative,
+    every gradient at normalized L2 < 1e-3; no FD kernel launched.  The
+    step takes the l2 loss: L1's sign flips wherever a residual is within
+    rounding of zero, which put one gradient 7.3e-4 from the CPU's.  Both
+    are also held (printed only) against the same network in float64 on
+    the CPU (the loss on its f32 output), to show which side the
+    difference is on."""
+    import copy
+
+    import torch
+
+    from deepfluids_tpu_torch.config import load_config
+    from deepfluids_tpu_torch.ops import cuda_fd
+    from deepfluids_tpu_torch.train.trainer import Trainer
+    from deepfluids_tpu_torch.utils.parity import normalized_l2
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg = load_config(train["run"])
+    cfg.compute_dtype, cfg.loss_norm = "float32", "l2"
+    b = path.parity_batch
+    results = []
+    cuda_fd.reset_launch_counts()
+    for dev in (device, torch.device("cpu"), None):
+        if dev is None:     # the CPU trainer's network in float64
+            model = copy.deepcopy(t.model).double()
+            model.compute_dtype = torch.float64
+        else:
+            t = Trainer(cfg, run_dir=train["run"], device=dev,
+                        save_cfg=False)
+            t.restore_weights()
+            model = t.model
+            x, y = (torch.from_numpy(a[:b]).to(dev)
+                    for a in t.bm.step_batch(1))
+        loss, _ = t._loss_fn(model, x, y)
+        loss.backward()
+        results.append((loss.item(), {n: p.grad.cpu().double().numpy()
+                                      for n, p in model.named_parameters()}))
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    (lc, gc), (lh, gh), (_, g64) = results
+    launches = dict(cuda_fd.launch_counts)
+    err = {n: normalized_l2(gc[n], gh[n]) for n in gc}
+    worst = max(err, key=err.get)
+    vs64 = [max(normalized_l2(g[n], g64[n]) for n in g64) for g in (gc, gh)]
+    if not (abs(lc - lh) <= 1e-5 * abs(lh) and err[worst] < TOL_PARITY
+            and launches == expected_launches({})):
+        raise AssertionError(f"card vs CPU train step: loss {lc} vs {lh}, "
+                             f"gradient L2 {err}, launches {launches}")
+    print(f"phase 6 parity {path.name.upper()}: ok  one f32 train step (l2) "
+          f"at the flagship width, batch {b}, card (TF32 off, deterministic "
+          f"cuDNN) vs CPU: loss {lc!r} vs {lh!r} (relative "
+          f"{abs(lc - lh) / abs(lh):.2e}, tol 1e-5); every gradient within "
+          f"normalized L2 {err[worst]:.2e} ({worst}; tol {TOL_PARITY}); "
+          f"against the float64 network, worst gradient L2 card "
+          f"{vs64[0]:.2e}, CPU {vs64[1]:.2e}; no FD kernel (the path has "
+          f"none)", flush=True)
 
 
 def make_mov_dataset(root: str, path: LatentPath) -> tuple[str, np.ndarray]:
@@ -1328,6 +1479,11 @@ def device_ms(calls: dict, iters: int) -> dict:
     # kernel whose events time was 0.0392 ms, and half its plain version's
     # time) is measured again; a row short of fewer counts its whole
     # launches at the mean of the records it kept.
+    # A window can also come back with no kernel row at all (the first
+    # window of a run on the card, once in several runs): a label without
+    # device time is measured again too.  If five windows fail, each label
+    # is timed with CUDA events instead, in the same turns, and the line
+    # says so.
     calls_per_row = 2 * iters
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1341,20 +1497,24 @@ def device_ms(calls: dict, iters: int) -> dict:
                 for ev in prof.key_averages()
                 if ev.device_type == DeviceType.CUDA
                 and SENTINEL_KERNEL not in ev.key]
+        total = dict.fromkeys(calls, 0.0)
+        for ev, want in rows:
+            label = next((k for k in calls if k != "plain" and k in ev.key),
+                         "plain")
+            total[label] += ev.self_device_time_total * want / max(1,
+                                                                   ev.count)
         if all(abs(ev.count - want) <= max(1, 0.01 * want)
-               for ev, want in rows):
-            break
-    else:
-        raise AssertionError("the profiler lost kernel records in five "
-                             "windows: " + ", ".join(
-                                 f"{ev.key[:40]} x{ev.count} of {want}"
-                                 for ev, want in rows))
-    total = dict.fromkeys(calls, 0.0)
-    for ev, want in rows:
-        label = next((k for k in calls if k != "plain" and k in ev.key),
-                     "plain")
-        total[label] += ev.self_device_time_total * want / ev.count
-    return {k: v / calls_per_row / 1e3 for k, v in total.items()}
+               for ev, want in rows) and all(v > 0 for v in total.values()):
+            return {k: v / calls_per_row / 1e3 for k, v in total.items()}
+    lost = ", ".join(f"{ev.key[:40]} x{ev.count} of {want}"
+                     for ev, want in rows) or "no kernel row"
+    runs = {k: [] for k in calls}
+    for label in order:
+        runs[label].append(cuda_ms(calls[label], iters))
+    print(f"device_ms: the profiler lost kernel records in five windows "
+          f"({lost}); timed with CUDA events, the host's launch included",
+          flush=True)
+    return {k: min(v) for k, v in runs.items()}
 
 
 def kernel_timing(device, card: str, names: list[str],
@@ -1463,9 +1623,10 @@ def phase_train_timing(device, train: dict, card: str, path: MainPath,
     return {"step_ms": step_ms, "kernel_ms": kern_ms, "trainer": t}
 
 
-def profile_line(what: str, fn, wall_ms: float, iters: int = 3) -> None:
-    """Print device time by kernel of ``iters`` calls of ``fn`` and the
-    idle share against ``wall_ms`` per call."""
+def profile_line(what: str, fn, wall_ms: float, iters: int = 3) -> float:
+    """Print device time by kernel of ``iters`` calls of ``fn``, the
+    kernels a call launches and the idle share against ``wall_ms`` per
+    call; returns the launches a call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1480,18 +1641,21 @@ def profile_line(what: str, fn, wall_ms: float, iters: int = 3) -> None:
     # Kernel rows only: operator rows repeat their kernels' device time,
     # and a user annotation's device row (e.g. the optimizer step's) spans
     # the kernels inside it.
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     rows = sorted(((e.self_device_time_total / iters / 1e3, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)),
-                  reverse=True)
+                   for e in events), reverse=True)
+    launches = sum(e.count for e in events) / iters
     total = sum(r[0] for r in rows)
     top = "; ".join(f"{name[:60]} {ms:.3f} ms" for ms, name in rows[:8])
     fd_rows = "; ".join(f"{name[:40]} {ms:.4f} ms" for ms, name in rows
                         if "curl" in name or "jacobian" in name)
     print(f"profile {what}: kernels {total:.3f} ms/iter of {wall_ms:.3f} ms "
-          f"wall (idle share {1 - total / wall_ms:.3f}); by kernel: {top}; "
-          f"FD kernels: {fd_rows}", flush=True)
+          f"wall (idle share {1 - total / wall_ms:.3f}), {launches:.0f} "
+          f"kernel launches/iter; by kernel: {top}; FD kernels: "
+          f"{fd_rows or 'none'}", flush=True)
+    return launches
 
 
 def profiles(device, serving: dict, timing: dict, train_timing: dict,
@@ -1512,7 +1676,7 @@ def profiles(device, serving: dict, timing: dict, train_timing: dict,
             profile_line(f"2D batch 512 fwd+curl [{card}]",
                          lambda: apply_curl(model(p)),
                          timing[PATH_2D.name]["gen_curl_ms"][512])
-        for path in PATHS:
+        for path in (PATH_2D, PATH_3D):
             tt = train_timing[path.name]
             t = tt["trainer"]
             x, y = t._load_device_cache()
@@ -1524,26 +1688,234 @@ def profiles(device, serving: dict, timing: dict, train_timing: dict,
         print(f"profile: not measured ({type(e).__name__}: {e})")
 
 
-def main() -> None:
-    # The smoke runs on one card: show CUDA only the first visible one, so
-    # the device count reported last is the card the run used.
-    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
-    os.environ["CUDA_VISIBLE_DEVICES"] = visible
+def phase_sweep_on_device(device, serving: dict, timing: dict, card: str,
+                          root: str) -> dict:
+    """``sweep_on_device`` over the full 2D grid (21 x 5 x 200 = 21 000
+    fields, 2.06 GB in f32) at batch 512 with the 2D serving run's flagship
+    weights, timed twice; a batch of its second segment against
+    ``sweep_generator`` on the same slice (deterministic cuDNN, so both
+    run the same convolutions)."""
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
-                         "this script runs only on a CUDA card")
-    device = torch.device("cuda", 0)
-    card = card_line()
-    t_start = time.perf_counter()
+    from deepfluids_tpu_torch.data import load_manifest
+    from deepfluids_tpu_torch.infer.sweep import (
+        param_grid,
+        sweep_generator,
+        sweep_on_device,
+    )
+    from deepfluids_tpu_torch.models import load_flax_npz
+    from deepfluids_tpu_torch.ops import cuda_fd
+    from deepfluids_tpu_torch.train.losses import apply_curl
+    from deepfluids_tpu_torch.utils.parity import normalized_l2
 
-    def timed(label: str, fn, *args, **kwargs):
+    path = PATH_2D
+    model = flagship_model(path)
+    load_flax_npz(serving[path.name]["weights"], model)
+    model.to(device)
+    manifest = load_manifest(os.path.join(root, "data", path.dataset))
+    raw = param_grid(manifest, path.param_counts, path.num_frames)
+    bs = 512
+
+    def apply_fn(p):
+        return apply_curl(model(p))
+
+    torch.backends.cudnn.deterministic = True
+    secs, out = [], None
+    for _ in range(2):
+        out = None            # the first result's 2 GB go before the second
+        cuda_fd.reset_launch_counts()
         t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        print(f"  {label} wall {time.perf_counter() - t0:.2f} s", flush=True)
-        return out
+        out = sweep_on_device(apply_fn, manifest, raw, batch_size=bs,
+                              device=device)
+        secs.append(time.perf_counter() - t0)
+        launches = dict(cuda_fd.launch_counts)
+    n = len(raw)
+    # A whole batch of the second of the two 1 GiB segments.
+    lo = bs * max(0, min(25, n // bs - 1))
+    ref = np.concatenate(list(sweep_generator(
+        apply_fn, manifest, raw[lo:lo + bs], batch_size=bs, device=device)))
+    torch.backends.cudnn.deterministic = False
+    # sweep_on_device's segments: as many batches as fit in 1 GiB, the
+    # last segment padded to the same shape; the curl once a batch.
+    per_seg = min(max(1, (1 << 30) // (4 * math.prod(manifest.field_shape)
+                                       * bs)), -(-n // bs))
+    batches = -(-n // (per_seg * bs)) * per_seg
+    if (out.shape != (n,) + manifest.field_shape or out.dtype != np.float32
+            or not np.isfinite(out).all()):
+        raise AssertionError(f"sweep_on_device gave {out.shape} {out.dtype}")
+    l2 = normalized_l2(out[lo:lo + bs], ref)
+    if not (l2 < TOL_PARITY and launches == expected_launches(
+            {"curl2d_fused": batches})):
+        raise AssertionError(f"sweep_on_device vs sweep_generator L2 {l2}, "
+                             f"launches {launches}, want {batches} curls")
+    rate = n / min(secs)
+    device_rate = timing[path.name]["fields_per_s"]
+    print(f"phase 8 sweep_on_device 2D: ok  the full {path.serve_counts} x "
+          f"{path.num_frames} grid, {n} fields of 128x96x2 ({out.nbytes / 1e9:.2f} "
+          f"GB f32) at batch {bs}, segments of <= 1 GiB on the card copied "
+          f"once each into a pinned host buffer: {secs[0]:.3f} s / "
+          f"{secs[1]:.3f} s = {rate:.1f} fields/s (phase 5's device rate of "
+          f"generator + curl at batch 512: {device_rate:.1f} fields/s; "
+          f"[{card}]); curl2d_fused {launches['curl2d_fused']} launches = "
+          f"{batches} batches of {-(-batches // per_seg)} segments; rows "
+          f"{lo}:{lo + bs} "
+          f"vs sweep_generator L2 {l2:.2e} (tol {TOL_PARITY})", flush=True)
+    return {"fields_per_s": rate, "secs": secs}
 
+
+def phase_knobs3d(device) -> None:
+    """One forward of config #5's generator (filters 128, num_conv 4) with
+    every knob (Fourier embedding 8, spectral residuals 8, the grid decoder
+    4 / 4 / 8), gains and bases drawn at random, curl applied, batch 2,
+    f32, TF32 off: the card's fields against the same model's on the
+    CPU."""
+    import torch
+
+    from deepfluids_tpu_torch.models import GeneratorBE, flax_init_
+    from deepfluids_tpu_torch.ops import cuda_fd
+    from deepfluids_tpu_torch.train.losses import apply_curl
+    from deepfluids_tpu_torch.utils.parity import normalized_l2
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = PATH_3D
+    model = flax_init_(GeneratorBE(
+        tuple(path.resolution) + (3,), num_param=3, embed_bands=8,
+        spectral_modes=8, grid_levels=4, grid_features=4, grid_rank=8,
+        **FLAGSHIP), seed=5)
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if "gain_" in name or name.startswith("basis_"):
+                prm.copy_(torch.randn(prm.shape, generator=gen) * 0.1)
+    p = torch.rand((2, 3), generator=gen) * 2 - 1
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = apply_curl(model(p)).numpy()
+    cpu_s = time.perf_counter() - t0
+    model.to(device)
+    cuda_fd.reset_launch_counts()
+    with torch.inference_mode():
+        got = apply_curl(model(p.to(device))).cpu().numpy()
+    launches = {k: v for k, v in cuda_fd.launch_counts.items() if v}
+    l2 = normalized_l2(got, ref)
+    if not (l2 < TOL_PARITY and np.isfinite(got).all()
+            and dict(cuda_fd.launch_counts) == expected_launches(
+                {"curl3d_fused": 1})):
+        raise AssertionError(f"3D knob forward card vs CPU: L2 {l2}, "
+                             f"launches {launches}")
+    print(f"phase 9 3D knobs forward: ok  GeneratorBE 32x64x112 f128 c4 with "
+          f"--embed_bands 8 --spectral_modes 8 --decoder grid (4, 4, rank 8), "
+          f"random gains and bases, {sum(q.numel() for q in model.parameters()) / 1e6:.2f}"
+          f" M parameters, batch 2, f32, TF32 off, + curl3d kernel "
+          f"(launches {launches}): card vs CPU fields L2 {l2:.2e} (tol "
+          f"{TOL_PARITY}; the CPU forward took {cpu_s:.1f} s)", flush=True)
+
+
+def phase_liquid_knob_timing(device, train: dict, serving: dict,
+                             train_timing: dict, card: str) -> dict:
+    """Config #3 and the knob path (printed only): the liquid train step at
+    batch 8 and 64 with its idle share, liquid serving at batch 512, the
+    knob step against the plain 2D "de" step at batch 8 and 64 with the
+    kernels each launches, and the x-mirror's cost in a step; a profile
+    line each."""
+    import torch
+
+    from deepfluids_tpu_torch.config import load_config
+    from deepfluids_tpu_torch.models import load_flax_npz
+    from deepfluids_tpu_torch.train.trainer import Trainer
+
+    def trainer(name: str) -> Trainer:
+        t = Trainer(load_config(train[name]["run"]), run_dir=train[name][
+            "run"], device=device, save_cfg=False)
+        t.restore_weights()
+        return t
+
+    def prof(what: str, fn, ms: float) -> float:
+        """The profile line's launches a call (diagnostics: nan when the
+        profiler fails)."""
+        try:
+            return profile_line(what, fn, ms)
+        except Exception as e:  # noqa: BLE001 - diagnostics only
+            print(f"profile {what}: not measured ({type(e).__name__}: {e})")
+            return float("nan")
+
+    out = {}
+    liq, knobs, de = (trainer("liquid"), trainer("knobs"),
+                      train_timing["2d"]["trainer"])
+    liq_cache, knob_cache = liq._load_device_cache(), knobs._load_device_cache()
+    de_cache = de._load_device_cache()
+    for b in (8, 64):
+        lx, ly = liq_cache[0][:b].float(), liq_cache[1][:b]
+        ms = cuda_ms(lambda: liq._train_step(lx, ly), 20)
+        launches = prof(
+            f"LIQUID train step batch {b} bf16 [{card}]",
+            lambda: liq._train_step(lx, ly), ms)
+        out[("liquid_step", b)] = ms
+        print(f"phase 5 timing [{card}]: LIQUID train step (fwd+bwd+Adam, "
+              f"no curl, the x-mirror on) flagship bf16 batch {b}: "
+              f"{ms:.3f} ms ({1e3 / ms:.1f} steps/s device), "
+              f"{launches:.0f} kernel launches a step, no FD kernel",
+              flush=True)
+    model = flagship_model(PATH_LIQ)
+    load_flax_npz(serving["liquid"]["weights"], model)
+    model.to(device)
+    p = torch.rand((512, 3), device=device) * 2 - 1
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: model(p), 10)
+        prof(f"LIQUID batch 512 fwd [{card}]", lambda: model(p), ms)
+    out["liquid_serving_fields_per_s"] = 512e3 / ms
+    print(f"phase 5 timing [{card}]: LIQUID GeneratorBE 128x96x1 f128 c4 "
+          f"bf16 batch 512 (no curl): {ms:.3f} ms = {512e3 / ms:.1f} "
+          f"fields/s", flush=True)
+    for b in (8, 64):
+        kx, ky = knob_cache[0][:b].float(), knob_cache[1][:b]
+        dx, dy = de_cache[0][:b].float(), de_cache[1][:b]
+        kern, plain, runs = alternated(
+            lambda: de._train_step(dx, dy),
+            lambda: knobs._train_step(kx, ky), 20 if b == 8 else 10)
+        lk = prof(f"KNOBS train step batch {b} bf16 [{card}]",
+                  lambda: knobs._train_step(kx, ky), kern)
+        lp = prof(f"2D train step batch {b} bf16 (no knob) [{card}]",
+                  lambda: de._train_step(dx, dy), plain)
+        out[("knob_step", b)], out[("de_step", b)] = kern, plain
+        print(f"phase 5 timing [{card}]: KNOBS train step (grid decoder, "
+              f"embed 8, spectral 8, x-mirror) flagship bf16 batch {b}: "
+              f"{kern:.3f} ms vs the 2D de step {plain:.3f} ms "
+              f"({kern / plain:.2f}x; d {runs[0]:.3f} k {runs[1]:.3f} k "
+              f"{runs[2]:.3f} d {runs[3]:.3f}); kernel launches a step "
+              f"{lk:.0f} vs {lp:.0f}", flush=True)
+    kx, ky = knob_cache[0][:8].float(), knob_cache[1][:8]
+    flip = knobs._flip
+
+    def unflipped():
+        knobs._flip = None
+        knobs._train_step(kx, ky)
+        knobs._flip = flip
+
+    on, off, runs = alternated(unflipped,
+                               lambda: knobs._train_step(kx, ky), 20)
+    out["flip_ms"] = on - off
+    print(f"phase 5 timing [{card}]: the x-mirror in the KNOBS step at "
+          f"batch 8: {on:.3f} ms with vs {off:.3f} ms without "
+          f"({on - off:+.3f} ms; n {runs[0]:.3f} f {runs[1]:.3f} f "
+          f"{runs[2]:.3f} n {runs[3]:.3f})", flush=True)
+    return out
+
+
+def timed(label: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall time printed under ``label``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"  {label} wall {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
+
+
+def run(device, card: str) -> list[dict]:
+    """Every phase on ``device``; the kernels' entries of the JSON line."""
+    import torch
+
+    t_start = time.perf_counter()
     timed("phase 1", phase_build, card)
     worst = timed("phase 2", phase_kernels, device)
     timed("phase 3", phase_golden, device)
@@ -1551,12 +1923,16 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         for path in PATHS:
             tag = path.name.upper()
-            serving[path.name] = timed(f"phase 4 {tag}", phase_serving,
-                                       device, root, path)
+            if path.serve_counts:
+                serving[path.name] = timed(f"phase 4 {tag}", phase_serving,
+                                           device, root, path)
             train[path.name] = timed(f"phase 6 {tag}", phase_train, device,
                                      root, path)
-            timed(f"phase 6 parity {tag}", phase_train_parity, device,
-                  train[path.name], path)
+            # A path without kernels is held against the CPU instead.
+            parity = (phase_train_parity if path.step_launches
+                      else phase_cpu_parity)
+            timed(f"phase 6 parity {tag}", parity, device, train[path.name],
+                  path)
         mov = timed("phase 7 MOV", phase_train_mov, device, root, PATH_MOV)
         timed("phase 6 parity MOV", phase_train_parity, device, mov,
               PATH_MOV)
@@ -1577,6 +1953,11 @@ def main() -> None:
             "phase 5 3D training", phase_train_timing, device, train["3d"],
             card, PATH_3D, (8,),
             ["jacobian3d_fused", "curl3d_bwd", "jacobian3d_bwd"], (32, 8))
+        timed("phase 5 LIQUID/KNOBS", phase_liquid_knob_timing, device,
+              train, serving, train_timing, card)
+        timed("phase 8", phase_sweep_on_device, device, serving, timing,
+              card, root)
+        timed("phase 9", phase_knobs3d, device)
         timed("profiles", profiles, device, serving, timing, train_timing,
               card)
     leaked = sorted(m for m in sys.modules
@@ -1588,22 +1969,29 @@ def main() -> None:
         path = PATH_2D if nd == 2 else PATH_3D
         by_path = {}
         for p in PATHS:
-            by_path[f"serving_{p.name}"] = serving[p.name]["launches"][name]
+            # The knob path is served from its trained run (phase 6).
+            by_path[f"serving_{p.name}"] = (
+                serving[p.name]["launches"][name] if p.name in serving
+                else train[p.name]["served"][name])
             by_path[f"train_{p.name}"] = sum(
                 r["launches"][name] for r in train[p.name]["runs"])
         by_path["train_mov"] = sum(r["launches"][name] for r in
                                    mov["ae_runs"] + mov["nn_runs"])
         by_path["serving_mov"] = sum(s[name] for s in mov["serving"])
+        if by_path["serving_liquid"] or by_path["train_liquid"]:
+            raise AssertionError(f"{name} launched on config #3's path, "
+                                 f"which has no curl: {by_path}")
         if by_path[f"train_{path.name}"] == 0 or (
                 name in path.forward_launches
                 and by_path[f"serving_{path.name}"] == 0):
             raise AssertionError(f"{name} never launched on the "
                                  f"{path.name} path: {by_path}")
-        if nd == 2 and (by_path["train_mov"] == 0 or (
-                name in PATH_MOV.forward_launches
-                and by_path["serving_mov"] == 0)):
-            raise AssertionError(f"{name} never launched on config #4's "
-                                 f"path: {by_path}")
+        for other in ("mov", "knobs"):
+            if nd == 2 and (by_path[f"train_{other}"] == 0 or (
+                    name in PATH_2D.forward_launches
+                    and by_path[f"serving_{other}"] == 0)):
+                raise AssertionError(f"{name} never launched on the {other} "
+                                     f"path: {by_path}")
         # The time at the timed shape: 2D [512,128,96,.], 3D
         # [32,32,64,112,.], f32; no single PyTorch call computes the
         # edge-replicated difference or its transpose (torch.gradient takes
@@ -1619,6 +2007,21 @@ def main() -> None:
             "launches_by_path": by_path, "max_abs_err": worst[name],
             **times[(name, b, torch.float32)], "library_ms": None})
     print(f"total wall {time.perf_counter() - t_start:.2f} s", flush=True)
+    return kernels
+
+
+def main() -> None:
+    # The smoke runs on one card: show CUDA only the first visible one, so
+    # the device count reported last is the card the run used.
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this script runs only on a CUDA card")
+    card = card_line()
+    kernels = run(torch.device("cuda", 0), card)
     print(json.dumps({"kernels": kernels}))
     count = torch.cuda.device_count()
     if count != 1:

@@ -10,7 +10,9 @@ from deepfluids_tpu_torch.infer.sweep import (
     param_grid,
     run_test_sweep,
     sweep_generator,
+    sweep_on_device,
 )
 
-__all__ = ["param_grid", "sweep_generator", "run_test_sweep",
+__all__ = ["param_grid", "sweep_generator", "sweep_on_device",
+           "run_test_sweep",
            "encode_dataset", "rollout_trajectory", "score_rollout_vs_sim"]

@@ -1,10 +1,11 @@
 """Batched parameter-grid sweeps for the generator (arch "de").
 
 Counterpart of :mod:`deepfluids_tpu.infer.sweep` (``param_grid``,
-``sweep_generator``, ``_write_npz``, ``run_test_sweep``), with the same
-artifact contract: ``<out_dir>/<scene>_<frame>.npz`` holding ``x`` (the
-raw-unit field) and ``y`` (raw params), vorticity PNGs every
-``save_png_every`` frames and a GIF of the first scene.
+``sweep_generator``, ``sweep_on_device``, ``_write_npz``,
+``run_test_sweep``), with the same artifact contract:
+``<out_dir>/<scene>_<frame>.npz`` holding ``x`` (the raw-unit field) and
+``y`` (raw params), vorticity (or levelset) PNGs every ``save_png_every``
+frames and a GIF of each of the first ``gif_scenes`` scenes.
 """
 
 from __future__ import annotations
@@ -22,8 +23,6 @@ from numpy.lib import format as npfmt
 
 from deepfluids_tpu_torch.data import Manifest
 from deepfluids_tpu_torch.utils.images import save_field_image, save_gif
-
-_WRITE_WORKERS = 16
 
 
 def param_grid(manifest: Manifest, counts: Sequence[int],
@@ -58,15 +57,16 @@ def sweep_generator(
     manifest: Manifest,
     raw_params: np.ndarray,
     batch_size: int = 32,
+    denormalize: bool = True,
     device: str | torch.device = "cuda",
 ) -> Iterator[np.ndarray]:
     """Yield generated fields for a raw-parameter list, batch by batch.
 
     ``apply_fn`` maps normalized params ``[B, P]`` on ``device`` to fields
     ``[B, *res, C]`` (curl applied, normalized units); fields come back in
-    raw units.  The last partial batch is padded to ``batch_size``, so
-    every call sees one shape, and the padding rows are dropped.  Runs
-    under ``torch.inference_mode``.
+    raw units (normalized with ``denormalize=False``).  The last partial
+    batch is padded to ``batch_size``, so every call sees one shape, and
+    the padding rows are dropped.  Runs under ``torch.inference_mode``.
     """
     n = raw_params.shape[0]
     p_norm = manifest.normalize_params(raw_params)
@@ -80,7 +80,55 @@ def sweep_generator(
             out = out.float().cpu().numpy()
         if pad:
             out = out[:-pad]
-        yield manifest.denormalize_field(out)
+        yield manifest.denormalize_field(out) if denormalize else out
+
+
+def sweep_on_device(
+    apply_fn: Callable[[torch.Tensor], torch.Tensor],
+    manifest: Manifest,
+    raw_params: np.ndarray,
+    batch_size: int = 512,
+    max_out_bytes: int = 1 << 30,
+    device: str | torch.device = "cuda",
+) -> np.ndarray:
+    """The whole sweep on the device, returned once: fields ``[N, *res,
+    C]`` in raw units (float32).
+
+    The grid runs in segments of the same shape: each is a preallocated
+    device buffer of at most ``max_out_bytes`` (at least one batch), filled
+    batch by batch in padded batches of ``batch_size``, scaled to raw units
+    there and copied back in one copy into a pinned host buffer (pageable
+    memory on a CPU device).  The full 2D grid (21 000 fields, 2.06 GB)
+    takes two segments of the default 1 GiB at batch 512; the full 3D grid
+    (3 750 fields, 10.3 GB) ten at batch 32.
+    """
+    device = torch.device(device)
+    n = raw_params.shape[0]
+    p_norm = np.asarray(manifest.normalize_params(raw_params), np.float32)
+    shape = tuple(manifest.field_shape)
+    field_bytes = 4 * int(np.prod(shape))
+    seg_chunks = max(1, int(max_out_bytes // (field_bytes * batch_size)))
+    per_seg = min(seg_chunks * batch_size, -(-n // batch_size) * batch_size)
+    pad = (-n) % per_seg
+    if pad:
+        p_norm = np.concatenate([p_norm, np.repeat(p_norm[-1:], pad, 0)])
+    segs = torch.from_numpy(p_norm).view(-1, per_seg, p_norm.shape[-1])
+    pinned = device.type == "cuda"
+    host = torch.empty((per_seg,) + shape, dtype=torch.float32,
+                       pin_memory=pinned)
+    out = (host.numpy() if len(segs) == 1
+           else np.empty((len(segs) * per_seg,) + shape, np.float32))
+    with torch.inference_mode():
+        buf = torch.empty((per_seg,) + shape, dtype=torch.float32,
+                          device=device)
+        for k, seg in enumerate(segs):
+            seg = seg.to(device)
+            for i in range(0, per_seg, batch_size):
+                buf[i:i + batch_size] = apply_fn(seg[i:i + batch_size])
+            host.copy_(buf.mul_(manifest.v_scale))   # raw units
+            if len(segs) > 1:
+                out[k * per_seg:(k + 1) * per_seg] = host.numpy()
+    return out[:n]
 
 
 def _write_npz(path: str, **arrays) -> None:
@@ -98,31 +146,41 @@ def run_test_sweep(
     apply_fn: Callable[[torch.Tensor], torch.Tensor],
     manifest: Manifest,
     out_dir: str,
-    counts: Sequence[int],
+    counts: Sequence[int] | None = None,
     num_frames: int | None = None,
     batch_size: int = 32,
+    save_npz: bool = True,
     save_png_every: int = 0,
+    gif_scenes: int = 1,
+    write_workers: int = 16,
     device: str | torch.device = "cuda",
 ) -> dict:
-    """Full parameter-grid sweep writing ``.npz`` fields, a vorticity PNG
-    every ``save_png_every`` frames and a GIF of the first scene.
+    """Full parameter-grid sweep writing ``.npz`` fields (``save_npz``), a
+    vorticity (levelset) PNG every ``save_png_every`` frames and a GIF of
+    each of the first ``gif_scenes`` scenes (at most the scenes swept).
+    ``counts`` None sweeps one value per non-frame parameter, its range's
+    midpoint.
 
-    Artifact encoding runs on a thread pool (zlib releases the GIL)
-    overlapped with the device sweep; a bounded in-flight queue caps host
-    memory at a few hundred frames.  Returns ``{"num_fields", "out_dir"}``.
+    Artifact encoding runs on a ``write_workers``-thread pool (zlib
+    releases the GIL) overlapped with the device sweep; a bounded in-flight
+    queue caps host memory at a few hundred frames.  Returns
+    ``{"num_fields", "out_dir"}``.
     """
     os.makedirs(out_dir, exist_ok=True)
+    if counts is None:
+        counts = [1] * (manifest.num_param - 1)
     t = num_frames or manifest.num_frames
     raw = param_grid(manifest, counts, t)
     n = raw.shape[0]
+    gif_scenes = min(gif_scenes, n // t)
     mode = "levelset" if manifest.num_channels == 1 else "vorticity"
 
-    pool = cf.ThreadPoolExecutor(max_workers=_WRITE_WORKERS)
+    pool = cf.ThreadPoolExecutor(max_workers=max(1, write_workers))
     pending: deque = deque()
 
     def submit(fn, *a, **kw):
         pending.append(pool.submit(fn, *a, **kw))
-        while len(pending) > 8 * _WRITE_WORKERS:
+        while len(pending) > 8 * write_workers:
             pending.popleft().result()
 
     gif_frames: list[np.ndarray] = []
@@ -132,18 +190,20 @@ def run_test_sweep(
                                      device=device):
             for f in batch:
                 scene, frame = divmod(idx, t)
-                submit(_write_npz,
-                       os.path.join(out_dir, f"{scene}_{frame}.npz"),
-                       x=f.astype(np.float32), y=raw[idx])
+                if save_npz:
+                    submit(_write_npz,
+                           os.path.join(out_dir, f"{scene}_{frame}.npz"),
+                           x=f.astype(np.float32), y=raw[idx])
                 if save_png_every and frame % save_png_every == 0:
                     submit(save_field_image,
                            os.path.join(out_dir, f"{scene}_{frame}.png"),
                            f, mode)
-                if scene == 0:
+                if scene < gif_scenes:
                     gif_frames.append(f)
                 idx += 1
-        submit(save_gif, os.path.join(out_dir, "scene0.gif"), gif_frames,
-               mode)
+        for s in range(gif_scenes):
+            submit(save_gif, os.path.join(out_dir, f"scene{s}.gif"),
+                   gif_frames[s * t:(s + 1) * t], mode)
         while pending:
             pending.popleft().result()
     finally:

@@ -12,6 +12,13 @@ Counterpart of :mod:`deepfluids_tpu.main` with the same flag set
     python -m deepfluids_tpu_torch.main --arch de --is_train False \\
         --load_path <run>
 
+    # config #3 (liquid: levelset fields, no curl), x-mirror augmentation,
+    # and the generator's knobs (any subset)
+    python -m deepfluids_tpu_torch.main --dataset liquid_pos10_size4 \\
+        --data_type levelset --augment_flip_x true
+    python -m deepfluids_tpu_torch.main --dataset smoke_pos21_size5 \\
+        --decoder grid --embed_bands 8 --spectral_modes 8
+
     # config #4: train the autoencoder, encode the dataset into
     # <dataset>/code<z_num><suffix>/, train the latent integrator on the
     # codes, then roll it out through the AE's decoder into

@@ -6,13 +6,22 @@ from a parameter vector to a stream function (2D) or vector potential (3D),
     p -> fc_in -> reshape to the coarse grid [(D0,) H0, W0, filters]
       -> repeat x { num_conv 3x3(x3) convs (leaky ReLU) + skip from the
                     stage input + 2x nearest upsample (except the last) }
-      -> conv_out 3x3(x3) to out_channels (no activation), cast to float32.
+      -> conv_out 3x3(x3) to out_channels (no activation), cast to float32,
+
+with the JAX module's beyond-reference knobs, each off by default: a
+Fourier embedding of the parameters (``embed_bands``), a learned low-mode
+spectral residual after each stage's convs (``spectral_modes``), and the
+grid decoder (``grid_levels`` / ``grid_features`` / ``grid_rank``: a
+multi-resolution feature grid over the parameters widens ``fc_in``, and
+each stage adds a parameter-modulated spatial basis).
 
 The curl that turns the potential into velocity is applied outside the
 network (:func:`deepfluids_tpu_torch.train.losses.apply_curl`).
 
-Submodules carry the Flax names (``fc_in``, ``conv_{stage}_{c}``,
-``conv_out``) so :mod:`.weights` maps one onto the other by name.  Dtypes
+Submodules and parameters carry the Flax names (``fc_in``,
+``conv_{stage}_{c}``, ``conv_out``, ``param_grid/grid_{l}``,
+``spectral_{stage}/gain_re|gain_im``, ``coef_{stage}``, ``basis_{stage}``,
+``inj_{stage}``) so :mod:`.weights` maps one onto the other by name.  Dtypes
 follow Flax's ``nn.Dense/nn.Conv(dtype=...)``: parameters stay float32 and
 each layer casts its input, kernel and bias to ``compute_dtype``.  Inside,
 activations are NCHW (NCDHW in 3D); ``fc_in``'s output is viewed
@@ -23,9 +32,11 @@ kernel of 3 is ``padding=1``.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -54,7 +65,11 @@ def flax_init_(model: nn.Module, seed: int) -> nn.Module:
     module order, so the weights are the same on any device; they are not
     JAX's numbers (another generator), only its distribution.  A layer
     flagged ``flax_zero_init`` (the latent integrator's head, Flax's
-    ``kernel_init=zeros``) gets a zero kernel.
+    ``kernel_init=zeros``) gets a zero kernel.  The raw tables of the
+    generator's knobs follow their Flax initializers: a module's own
+    parameters are drawn from ``normal(flax_normal_std)`` where it sets
+    that attribute (the parameter grid's tables) and are zero otherwise
+    (the spectral gains, the grid decoder's bases).
     """
     gen = torch.Generator().manual_seed(seed)
     # The std of a unit normal truncated to [-2, 2] (jax.nn.initializers).
@@ -62,8 +77,15 @@ def flax_init_(model: nn.Module, seed: int) -> nn.Module:
     lo, hi = (math.erf(b / math.sqrt(2.0)) for b in (-2.0, 2.0))
     for module in model.modules():
         if not isinstance(module, (nn.Linear, nn.Conv2d, nn.Conv3d)):
+            std = getattr(module, "flax_normal_std", 0.0)
+            for p in module.parameters(recurse=False):
+                if std:
+                    p.copy_(torch.randn(p.shape, generator=gen) * std)
+                else:
+                    p.zero_()
             continue
-        module.bias.zero_()
+        if module.bias is not None:
+            module.bias.zero_()
         w = module.weight
         if getattr(module, "flax_zero_init", False):
             w.zero_()
@@ -76,6 +98,145 @@ def flax_init_(model: nn.Module, seed: int) -> nn.Module:
         draw = torch.erfinv(u) * math.sqrt(2.0)
         w.copy_((draw.clamp_(-2.0, 2.0) * sigma).to(w.dtype))
     return model
+
+
+def fourier_embed(z: torch.Tensor, bands: int) -> torch.Tensor:
+    """``[B, P]`` -> ``[B, P * (2 * bands + 1)]``: ``z`` followed by
+    ``sin`` and ``cos`` of ``2**k * pi * z`` for ``k < bands`` (per
+    parameter, sines then cosines); ``z`` itself when ``bands`` is 0."""
+    if bands <= 0:
+        return z
+    k = 2.0 ** torch.arange(bands, dtype=z.dtype, device=z.device) * math.pi
+    ang = z[..., None] * k                                   # [B, P, bands]
+    feats = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return torch.cat([z, feats.reshape(z.shape[:-1] + (-1,))], dim=-1)
+
+
+class SpectralResidual(nn.Module):
+    """A learned filter of each channel's lowest Fourier modes, added back
+    to its input: per spatial axis of extent ``n`` the ``K = 2m - 1`` modes
+    ``{-(m-1), .., m-1}`` with ``m = min(modes, (n + 1) // 2)``, kept as a
+    truncated DFT (one ``[n, K]`` matmul per axis, real and imaginary parts
+    carried apart), times the learned complex gains ``gain_re`` /
+    ``gain_im`` (Flax layout ``(K_0, .., C)``, zero at init), and back.
+    Computed in f32 on an NC(D)HW input; the residual is cast back to the
+    input's dtype."""
+
+    def __init__(self, modes: int, spatial: Sequence[int], channels: int):
+        super().__init__()
+        ks = []
+        for ax, n in enumerate(spatial):
+            m = min(modes, (n + 1) // 2)
+            freqs = np.concatenate([np.arange(m), np.arange(-(m - 1), 0)])
+            ang = 2.0 * np.pi * np.outer(np.arange(n), freqs) / n   # [N, K]
+            e_c = torch.from_numpy(np.cos(ang).astype(np.float32))
+            e_s = torch.from_numpy(np.sin(ang).astype(np.float32))
+            # exp(-i ang) forward, [N, K]; exp(+i ang) / N back, [K, N]
+            self.register_buffer(f"fw_c{ax}", e_c, persistent=False)
+            self.register_buffer(f"fw_s{ax}", -e_s, persistent=False)
+            self.register_buffer(f"inv_c{ax}", e_c.T.contiguous() / n,
+                                 persistent=False)
+            self.register_buffer(f"inv_s{ax}", e_s.T.contiguous() / n,
+                                 persistent=False)
+            ks.append(len(freqs))
+        self.ndim = len(spatial)
+        shape = tuple(ks) + (channels,)
+        self.gain_re = nn.Parameter(torch.zeros(shape))
+        self.gain_im = nn.Parameter(torch.zeros(shape))
+
+    @staticmethod
+    def _contract(re, im, bc, bs, dim):
+        """``(re + i im) (bc + i bs)`` contracted over axis ``dim``; ``im``
+        None is a real input."""
+        re = re.movedim(dim, -1)
+        rr, ri = re @ bc, re @ bs
+        if im is not None:
+            im = im.movedim(dim, -1)
+            rr, ri = rr - im @ bs, ri + im @ bc
+        return rr.movedim(-1, dim), ri.movedim(-1, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xr, xi = x.float(), None
+        for ax in range(self.ndim):
+            xr, xi = self._contract(xr, xi, getattr(self, f"fw_c{ax}"),
+                                    getattr(self, f"fw_s{ax}"), 2 + ax)
+        # (K_0, .., C) -> (C, K_0, ..), broadcast over the batch
+        perm = (self.ndim, *range(self.ndim))
+        gr, gi = self.gain_re.permute(perm), self.gain_im.permute(perm)
+        xr, xi = xr * gr - xi * gi, xr * gi + xi * gr
+        for ax in range(self.ndim):
+            xr, xi = self._contract(xr, xi, getattr(self, f"inv_c{ax}"),
+                                    getattr(self, f"inv_s{ax}"), 2 + ax)
+        return x + xr.to(x.dtype)
+
+
+def _grid_consts(knots: Sequence[int], device=None) -> tuple:
+    """The constants of :func:`_interp_grid` for a table of ``knots`` per
+    parameter: ``knots - 1`` (f32), the last lower-corner index ``knots -
+    2``, the ``2^P`` corners (first parameter slowest) and the flat
+    strides."""
+    num_p = len(knots)
+    return (torch.tensor([k - 1.0 for k in knots], device=device),
+            torch.tensor([k - 2 for k in knots], device=device),
+            torch.tensor(list(itertools.product((0, 1), repeat=num_p)),
+                         device=device),
+            torch.tensor([math.prod(knots[d + 1:]) for d in range(num_p)],
+                         device=device))
+
+
+def _interp_grid(table: torch.Tensor, p: torch.Tensor,
+                 consts: tuple | None = None) -> torch.Tensor:
+    """Multilinear interpolation of ``table`` ``[k_0, .., k_{P-1}, F]``
+    (knots over ``[-1, 1]^P``) at the queries ``p`` ``[B, P]`` (clipped to
+    the domain) -> ``[B, F]``; ``consts`` are :func:`_grid_consts` of the
+    table (made here when None: a copy to the device).
+
+    The ``2^P`` corner gathers are written as a ``[B, prod(k)]`` matrix of
+    corner weights times the flattened table, so the table's gradient is a
+    matmul: deterministic on the card, where the backward of an indexed
+    gather accumulates with atomics."""
+    knots = table.shape[:-1]
+    scale, hi, corners, strides = consts or _grid_consts(knots, p.device)
+    t = torch.clamp((p + 1.0) * 0.5, 0.0, 1.0) * scale          # [B, P]
+    i0 = torch.minimum(torch.floor(t).long(), hi).clamp_(0)
+    w = (t - i0)[:, None, :]                                     # [B, 1, P]
+    flat = ((i0[:, None, :] + corners) * strides).sum(-1)        # [B, 2^P]
+    weight = torch.where(corners.bool(), w, 1.0 - w).prod(-1)    # [B, 2^P]
+    weights = torch.zeros(p.shape[0], math.prod(knots), dtype=table.dtype,
+                          device=p.device).scatter_(
+                              1, flat, weight.to(table.dtype))
+    return weights @ table.reshape(-1, table.shape[-1])
+
+
+class MultiResParamGrid(nn.Module):
+    """Multi-resolution learned feature grids over the (normalized)
+    parameter domain: level ``l`` is a table ``grid_{l}`` of ``base * 2**l
+    + 1`` knots per parameter and ``features`` features (Flax's
+    ``normal(1e-2)`` init), interpolated multilinearly in f32; the levels'
+    features are concatenated.  The interpolation's constants are buffers,
+    so a forward copies nothing to the device."""
+
+    flax_normal_std = 1e-2
+
+    def __init__(self, num_param: int, levels: int = 4, features: int = 4,
+                 base: int = 2):
+        super().__init__()
+        self.levels = levels
+        for lvl in range(levels):
+            knots = (base * 2 ** lvl + 1,) * num_param
+            self.register_parameter(f"grid_{lvl}", nn.Parameter(
+                torch.zeros(knots + (features,))))
+            for name, c in zip(("scale", "hi", "corners", "strides"),
+                               _grid_consts(knots)):
+                self.register_buffer(f"{name}_{lvl}", c, persistent=False)
+
+    def forward(self, p: torch.Tensor) -> torch.Tensor:
+        p = p.float()
+        return torch.cat([_interp_grid(
+            getattr(self, f"grid_{lvl}"), p,
+            tuple(getattr(self, f"{n}_{lvl}") for n in
+                  ("scale", "hi", "corners", "strides")))
+            for lvl in range(self.levels)], dim=-1)
 
 
 def upscale_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
@@ -97,15 +258,28 @@ class GeneratorBE(nn.Module):
       filters, num_conv, repeat: as in the JAX module; ``repeat=0``
         derives it with :func:`default_repeat`.
       compute_dtype: dtype every layer computes in (float32 or bfloat16).
+      embed_bands: > 0 applies :func:`fourier_embed` to the input vector
+        (widens ``fc_in``).
+      spectral_modes: > 0 adds a zero-init :class:`SpectralResidual` after
+        each stage's convs.
+      grid_levels, grid_features: both > 0 turn the grid decoder on: a
+        :class:`MultiResParamGrid` of the raw vector is concatenated to the
+        (embedded) vector before ``fc_in``;
+      grid_rank: > 0 (with the grid on) adds each stage's basis injection
+        ``inj_k(coef_k(z) . basis_k)`` before its convs: ``coef_k`` a Dense
+        in f32 of the widened vector, ``basis_k`` ``(R, *res_k, F)`` zero at
+        init, ``inj_k`` a 1x1(x1) conv without a bias in ``compute_dtype``.
 
-    The JAX module's beyond-reference knobs (Fourier embedding, spectral
-    layers, the grid decoder, spatial sharding) are not ported; the trainer
-    refuses a config that sets them.
+    Spatial sharding (the JAX module's ``spatial_mesh``) is not ported; the
+    trainer refuses ``--spatial_shard``.
     """
 
     def __init__(self, output_shape: Sequence[int] = (128, 96, 1),
                  num_param: int = 3, filters: int = 128, num_conv: int = 4,
-                 repeat: int = 0, compute_dtype: torch.dtype = torch.float32):
+                 repeat: int = 0, compute_dtype: torch.dtype = torch.float32,
+                 embed_bands: int = 0, spectral_modes: int = 0,
+                 grid_levels: int = 0, grid_features: int = 0,
+                 grid_rank: int = 0):
         super().__init__()
         if len(output_shape) not in (3, 4):
             raise ValueError(
@@ -130,11 +304,31 @@ class GeneratorBE(nn.Module):
         self._to_nc = (0, nd + 1, *range(1, nd + 1))
         self._to_last = (0, *range(2, nd + 2), 1)
 
-        self.fc_in = nn.Linear(num_param, math.prod(self.coarse) * filters)
+        self.embed_bands = embed_bands
+        self.grid_on = grid_levels > 0 and grid_features > 0
+        self.inject = self.grid_on and grid_rank > 0
+        self.spectral = spectral_modes > 0
+        width = num_param * (2 * max(embed_bands, 0) + 1)
+        if self.grid_on:
+            # The grid interpolates the RAW vector (a table of (knots,)**P).
+            self.param_grid = MultiResParamGrid(num_param, grid_levels,
+                                                grid_features)
+            width += grid_levels * grid_features
+        self.fc_in = nn.Linear(width, math.prod(self.coarse) * filters)
         for stage in range(self.repeat):
+            res = tuple(c * 2 ** stage for c in self.coarse)
+            if self.inject:
+                self.add_module(f"coef_{stage}", nn.Linear(width, grid_rank))
+                self.register_parameter(f"basis_{stage}", nn.Parameter(
+                    torch.zeros((grid_rank,) + res + (grid_features,))))
+                self.add_module(f"inj_{stage}",
+                                conv(grid_features, filters, 1, bias=False))
             for c in range(num_conv):
                 self.add_module(f"conv_{stage}_{c}",
                                 conv(filters, filters, 3, padding=1))
+            if self.spectral:
+                self.add_module(f"spectral_{stage}", SpectralResidual(
+                    spectral_modes, res, filters))
         self.conv_out = conv(filters, self.output_shape[-1], 3, padding=1)
 
     def _conv(self, layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -142,17 +336,39 @@ class GeneratorBE(nn.Module):
         return self._conv_fn(x, layer.weight.to(dt), layer.bias.to(dt),
                              padding=1)
 
+    def _basis_inject(self, z: torch.Tensor, stage: int) -> torch.Tensor:
+        """Stage ``stage``'s injection ``[B, filters, *res]``: the codes
+        ``coef(z)`` ``[B, R]`` (f32) times the basis ``[R, *res, F]``
+        (f32), projected to ``filters`` by the bias-free 1x1 conv in the
+        compute dtype."""
+        coef = getattr(self, f"coef_{stage}")
+        basis = getattr(self, f"basis_{stage}")
+        a = F.linear(z.float(), coef.weight, coef.bias)
+        inj = (a @ basis.reshape(basis.shape[0], -1)).view(
+            -1, *basis.shape[1:]).permute(*self._to_nc)
+        dt = self.compute_dtype
+        return self._conv_fn(inj.to(dt), getattr(
+            self, f"inj_{stage}").weight.to(dt))
+
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        z_raw = z
+        z = fourier_embed(z, self.embed_bands)
+        if self.grid_on:
+            z = torch.cat([z, self.param_grid(z_raw)], dim=-1)
         x = F.linear(z.to(dt), self.fc_in.weight.to(dt),
                      self.fc_in.bias.to(dt))
         x = x.view(-1, *self.coarse, self.filters).permute(*self._to_nc)
         x0 = x
         for stage in range(self.repeat):
+            if self.inject:
+                x = x + self._basis_inject(z, stage)
             for c in range(self.num_conv):
                 x = F.leaky_relu(
                     self._conv(getattr(self, f"conv_{stage}_{c}"), x),
                     ACT_SLOPE)
+            if self.spectral:
+                x = getattr(self, f"spectral_{stage}")(x)
             if stage < self.repeat - 1:
                 x = upscale_nearest(x + x0, 2)
                 x0 = x

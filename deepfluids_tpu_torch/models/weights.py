@@ -2,11 +2,17 @@
 
 Takes the flat ``{"<module>/<kernel|bias>": array}`` form of
 ``tools/weights_io.flatten_params`` (or an ``.npz`` of it, as
-``weights_io.export_npz`` writes) and converts it by name:
+``weights_io.export_npz`` writes) and converts it by name.  A tensor's
+layout follows its role, which its torch name gives:
 
-  * Dense kernel ``(in, out)`` -> Linear weight ``(out, in)``;
-  * Conv kernel HWIO -> Conv2d weight OIHW, DHWIO -> Conv3d weight OIDHW;
-  * biases as they are.
+  * a layer's ``weight``: a Linear's ``(out, in)`` is a Dense kernel
+    ``(in, out)``; a Conv2d's OIHW / Conv3d's OIDHW is a Conv kernel HWIO /
+    DHWIO;
+  * a layer's ``bias``, as it is;
+  * any other parameter is a raw table (the parameter grid's
+    ``param_grid/grid_{l}``, the spectral gains ``spectral_{s}/gain_re``,
+    the grid decoder's top-level ``basis_{s}``), kept in the Flax layout
+    under its own name.
 
 Like ``weights_io.import_npz(mode="exact")`` it raises on a missing, extra
 or mis-shaped tensor, so a transposed kernel cannot load silently.
@@ -27,32 +33,43 @@ from torch import nn
 
 
 def _flax_key(torch_key: str) -> str:
-    module, leaf = torch_key.rsplit(".", 1)
-    leaf = "kernel" if leaf == "weight" else "bias"
-    return f"{module.replace('.', '/')}/{leaf}"
+    """``a.b.weight`` -> ``a/b/kernel``, ``a.bias`` -> ``a/bias``, a raw
+    table ``a.grid_0`` -> ``a/grid_0`` and a top-level ``basis_0`` ->
+    ``basis_0``."""
+    module, _, leaf = torch_key.rpartition(".")
+    leaf = {"weight": "kernel"}.get(leaf, leaf)
+    return f"{module.replace('.', '/')}/{leaf}" if module else leaf
 
 
-def _to_torch_layout(arr: np.ndarray) -> np.ndarray:
-    if arr.ndim == 2:      # Dense (in, out) -> (out, in)
+def _layer_kernel(torch_key: str) -> bool:
+    """Whether ``torch_key`` names a Linear or Conv weight (every other
+    tensor keeps its layout)."""
+    return torch_key.rpartition(".")[2] == "weight"
+
+
+def _to_torch_layout(arr: np.ndarray, torch_key: str) -> np.ndarray:
+    if not _layer_kernel(torch_key):
+        return arr
+    if arr.ndim == 2:      # Dense (in, out) -> Linear (out, in)
         return arr.T
-    if arr.ndim == 4:      # Conv HWIO -> OIHW
-        return arr.transpose(3, 2, 0, 1)
-    if arr.ndim == 5:      # Conv DHWIO -> OIDHW
-        return arr.transpose(4, 3, 0, 1, 2)
-    return arr
+    # Conv (*kernel, I, O) -> (O, I, *kernel)
+    return arr.transpose(arr.ndim - 1, arr.ndim - 2, *range(arr.ndim - 2))
+
+
+def _to_flax_layout(arr: np.ndarray, torch_key: str) -> np.ndarray:
+    if not _layer_kernel(torch_key):
+        return arr
+    if arr.ndim == 2:      # Linear (out, in) -> Dense (in, out)
+        return arr.T
+    # Conv (O, I, *kernel) -> (*kernel, I, O)
+    return arr.transpose(*range(2, arr.ndim), 1, 0)
 
 
 def flax_shapes(model: nn.Module) -> dict[str, tuple[int, ...]]:
     """The flat Flax keys and shapes ``model`` expects, in module order."""
-    out = {}
-    for key, t in model.state_dict().items():
-        shape = tuple(t.shape)
-        if t.dim() == 2:
-            shape = shape[::-1]
-        elif t.dim() >= 4:     # (O, I, *kernel) -> (*kernel, I, O)
-            shape = shape[2:] + (shape[1], shape[0])
-        out[_flax_key(key)] = shape
-    return out
+    return {_flax_key(key): _to_flax_layout(np.empty(tuple(t.shape), bool),
+                                            key).shape
+            for key, t in model.state_dict().items()}
 
 
 def flax_to_state_dict(flat: Mapping[str, np.ndarray],
@@ -74,7 +91,8 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray],
         raise ValueError(f"{len(bad)} shape mismatches, e.g. {k}: got "
                          f"{got}, model wants {shape} (Flax layout)")
     return {key: torch.from_numpy(np.array(_to_torch_layout(
-                np.asarray(flat[_flax_key(key)], np.float32)), order="C"))
+                np.asarray(flat[_flax_key(key)], np.float32), key),
+                order="C"))
             for key in model.state_dict()}
 
 
@@ -86,22 +104,12 @@ def load_flax_npz(path: str, model: nn.Module) -> nn.Module:
     return model
 
 
-def _to_flax_layout(arr: np.ndarray) -> np.ndarray:
-    if arr.ndim == 2:      # Linear (out, in) -> Dense (in, out)
-        return arr.T
-    if arr.ndim == 4:      # Conv OIHW -> HWIO
-        return arr.transpose(2, 3, 1, 0)
-    if arr.ndim == 5:      # Conv OIDHW -> DHWIO
-        return arr.transpose(2, 3, 4, 1, 0)
-    return arr
-
-
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
                        ) -> dict[str, np.ndarray]:
     """The inverse of :func:`flax_to_state_dict`: a state_dict as flat Flax
     params (float32 numpy, Flax layout, module order)."""
     return {_flax_key(key): np.ascontiguousarray(_to_flax_layout(
-                t.detach().float().cpu().numpy()))
+                t.detach().float().cpu().numpy(), key))
             for key, t in state_dict.items()}
 
 

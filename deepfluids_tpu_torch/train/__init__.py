@@ -1,3 +1,4 @@
-"""Training of arch "de" (the JAX ``train`` package's counterpart): the loss
-(``losses``), Adam with the cosine schedule (``state``) and the ``Trainer``
-that trains, checkpoints and serves the generator."""
+"""Training of archs "de", "ae" and "nn" (the JAX ``train`` package's
+counterpart): the losses (``losses``), Adam with the cosine schedule
+(``state``), the x-mirror augmentation (``augment``) and the ``Trainer``
+that trains, checkpoints and serves a run."""

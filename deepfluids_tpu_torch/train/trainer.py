@@ -54,7 +54,7 @@ from deepfluids_tpu_torch.models import (
     rollout,
     save_flax_npz,
 )
-from deepfluids_tpu_torch.train import losses
+from deepfluids_tpu_torch.train import augment, losses
 from deepfluids_tpu_torch.train.state import (
     clip_by_global_norm_,
     cosine_lr_schedule,
@@ -85,13 +85,9 @@ _CACHE_DTYPES = {"float32": torch.float32, "float16": torch.float16}
 ARCHS = ("de", "ae", "nn")
 
 
-def _check_unported_knobs(c: Config) -> None:
-    """The JAX model's beyond-reference options are not ported: raise
-    rather than run the plain trunk in their place."""
-    if c.embed_bands or c.spectral_modes or c.decoder != "be":
-        raise NotImplementedError(
-            "--embed_bands / --spectral_modes / --decoder grid are not "
-            "ported yet (ROADMAP Queue A item 10)")
+def _check_unported_model_flags(c: Config) -> None:
+    """Spatial sharding is not ported: raise rather than run unsharded in
+    its place."""
     if c.spatial_shard:
         raise NotImplementedError(
             "--spatial_shard (spatial sharding) is not ported yet "
@@ -103,7 +99,6 @@ def _check_unported_train_flags(c: Config) -> None:
     ROADMAP item.  (--watchdog_secs and --backend_probe_secs guard the TPU
     runtime and are ignored: ROADMAP "Not to port".)"""
     refused = [
-        (c.augment_flip_x, "--augment_flip_x is ROADMAP Queue A item 9"),
         (c.input_pipeline == "grain",
          "--input_pipeline grain is ROADMAP Queue A item 11"),
         (c.num_model_shards > 1 or c.num_data_shards > 1,
@@ -149,6 +144,9 @@ def _check_arch_flags(c: Config) -> None:
     if c.nn_field_w > 0 and not c.ae_load_path:
         raise ValueError("--nn_field_w needs --ae_load_path (the frozen "
                          "decoder to train through)")
+    if c.decoder == "grid" and c.arch != "de":
+        raise ValueError("--decoder grid applies to arch de (the "
+                         "parameterized generator)")
 
 
 def _crossed(period: int, step: int, take: int) -> bool:
@@ -163,7 +161,7 @@ class Trainer:
     def __init__(self, config: Config, run_dir: str | None = None,
                  device: str | torch.device = "cuda", save_cfg: bool = True):
         _check_arch_flags(config)
-        _check_unported_knobs(config)
+        _check_unported_model_flags(config)
         if config.is_train:
             _check_unported_train_flags(config)
         self.c = config
@@ -193,6 +191,7 @@ class Trainer:
             self.manifest = self.codes.manifest
         self.num_param = self.manifest.num_param
         self._check_geometry_flags()
+        self._flip = self._flip_signs()
 
         self.model = flax_init_(self._build_model(), config.seed).to(
             self.device)
@@ -226,6 +225,26 @@ class Trainer:
         if (c.res_z or c.is_3d) and not m.is_3d:
             raise ValueError(f"--is_3d/--res_z given but {c.dataset} is 2D")
 
+    def _flip_signs(self) -> tuple[torch.Tensor, torch.Tensor] | None:
+        """``--augment_flip_x``'s (channel, parameter) signs on the device
+        (arch "de" / "ae"; "nn" is refused), else None; warns where the
+        mirror of a training scene can be a held-out one."""
+        c = self.c
+        if not c.augment_flip_x:
+            return None
+        chan, psign = augment.flip_signs(self.manifest)
+        if (c.eval_holdout_scenes and self.manifest.param_counts
+                and float(psign.min()) < 0):
+            # Grid-sampled x-position family: the mirror of a training
+            # scene IS the dataset's scene at the reflected position.
+            log.warning(
+                "--augment_flip_x on a GRID-sampled x-position family "
+                "with --eval_holdout_scenes: mirrored training scenes "
+                "can coincide with held-out scenes (mirror-twin "
+                "leakage); holdout numbers for this run measure "
+                "coverage, not generalization")
+        return chan.to(self.device), psign.to(self.device)
+
     @property
     def pair_mode(self) -> bool:
         """(t, t+1) pair batches: ``--ae_pred_w`` on arch "ae"."""
@@ -245,9 +264,17 @@ class Trainer:
         c, m = self.c, self.manifest
         out_shape = tuple(m.resolution) + (self._potential_channels(),)
         if c.arch == "de":
+            grid = c.decoder == "grid"
             return GeneratorBE(out_shape, num_param=self.num_param,
                                filters=c.filters, num_conv=c.num_conv,
-                               repeat=c.repeat, compute_dtype=self.dtype)
+                               repeat=c.repeat, compute_dtype=self.dtype,
+                               embed_bands=c.embed_bands,
+                               spectral_modes=c.spectral_modes,
+                               grid_levels=c.grid_levels if grid else 0,
+                               grid_features=c.grid_features if grid else 0,
+                               grid_rank=c.grid_rank if grid else 0)
+        # The knobs are the generator's: arch "ae" ignores --embed_bands
+        # and --spectral_modes, as the JAX trainer does.
         if c.arch == "ae":
             return Autoencoder(
                 out_shape, in_channels=m.num_channels, z_num=c.z_num,
@@ -341,7 +368,13 @@ class Trainer:
     def _train_step(self, a: torch.Tensor,
                     b: torch.Tensor) -> dict[str, torch.Tensor]:
         """One Adam update at lr(updates done so far); the step's losses as
-        device tensors."""
+        device tensors.  Under ``--augment_flip_x`` a random half of the
+        field batch is mirrored first (the mask a pure function of (seed,
+        updates done))."""
+        if self._flip is not None:
+            mask = augment.flip_mask(self.c.seed, self.step, a.shape[0],
+                                     a.device)
+            a, b = augment.flip_x_batch(a, b, mask, *self._flip)
         set_lr(self.opt, self.lr_fn(self.step))
         self.opt.zero_grad(set_to_none=True)
         loss, aux = self._loss_fn(self.model, a, b, self.step)

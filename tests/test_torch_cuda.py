@@ -443,3 +443,126 @@ def test_nn_step_launch_counts(cuda_device, tmp_path, nn_field_w):
     want = {**zeros, "curl2d_fused": 2, "curl2d_bwd": 1,
             "jacobian2d_fused": 2, "jacobian2d_bwd": 1} if nn_field_w else zeros
     assert cuda_fd.launch_counts == want
+
+
+# --- config #3 (levelset), the generator's knobs, sweep_on_device ----------
+
+def _tiny_set(tmp_path, name: str, channels: int) -> str:
+    """A 2-scene x 4-frame 32x24 set (velocity, or a levelset under l/)
+    with (drop_x_pos, drop_radius, frame) params; its data dir."""
+    ds = tmp_path / "data" / name
+    levelset = channels == 1
+    save_manifest(Manifest(
+        param_names=["drop_x_pos", "drop_radius", "frame"],
+        param_ranges=[[0.25, 0.75], [0.06, 0.15], [0.0, 3.0]],
+        num_scenes=2, num_frames=4, resolution=[32, 24],
+        num_channels=channels, v_range=[-1.0, 1.0],
+        data_type="levelset" if levelset else "velocity",
+        param_counts=[2, 1]), str(ds))
+    key = "l" if levelset else "v"
+    os.makedirs(ds / key)
+    rng = np.random.default_rng(17)
+    for k in range(8):
+        np.savez(ds / key / f"{k // 4}_0_{k % 4}.npz",
+                 x=rng.standard_normal((32, 24, channels)).astype(np.float32),
+                 y=np.array([0.25 + 0.5 * (k // 4), 0.06, k % 4],
+                            np.float32))
+    return str(tmp_path / "data")
+
+
+KNOB_FLAGS = dict(decoder="grid", grid_levels=4, grid_features=4, grid_rank=8,
+                  embed_bands=8, spectral_modes=8, augment_flip_x=True)
+
+
+@pytest.mark.cuda
+def test_knob_step_kernels_match_plain(cuda_device, tmp_path, monkeypatch):
+    # A knob step (all knobs and the flip) launches a plain step's kernels,
+    # and its f32 loss and gradients equal the step through the plain ops.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = Config(data_dir=_tiny_set(tmp_path, "knobs", 2), dataset="knobs",
+               filters=8, num_conv=1, batch_size=4, num_worker=1,
+               log_dir=str(tmp_path), **KNOB_FLAGS)
+    t = Trainer(c, device=cuda_device)
+    gen = torch.Generator().manual_seed(19)
+    with torch.no_grad():   # non-zero gains and bases
+        for n, p in t.model.named_parameters():
+            if "gain_" in n or n.startswith("basis_"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+    x, y = (torch.from_numpy(a).to(cuda_device) for a in t.bm.step_batch(1))
+    zeros = dict.fromkeys(cuda_fd.launch_counts, 0)
+    cuda_fd.reset_launch_counts()
+    aux = t._train_step(x, y)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(aux["loss"]))
+    assert cuda_fd.launch_counts == {**zeros, "curl2d_fused": 1,
+                                     "curl2d_bwd": 1, "jacobian2d_fused": 2,
+                                     "jacobian2d_bwd": 1}
+    results = []
+    for plain in (False, True):
+        if plain:
+            for n in ("curl2d", "jacobian2d"):
+                monkeypatch.setattr(cuda_fd, n + "_p", getattr(fd, n))
+        t.model.zero_grad(set_to_none=True)
+        loss, _ = t._loss_fn(t.model, x, y)
+        loss.backward()
+        results.append((loss.item(), {n: p.grad.clone() for n, p in
+                                      t.model.named_parameters()}))
+    (lk, gk), (lp, gp) = results
+    assert abs(lk - lp) <= 1e-6 * abs(lp)
+    # Against the step's gradient scale: a gain's gradient is a cancelling
+    # sum of the spectrum, so its own largest entry is no scale (one read
+    # 1.4e-5 of it from rounding alone); and conv_out's bias is the curl's
+    # null direction.
+    scale = max(float(g.abs().max()) for g in gp.values())
+    for n in gk:
+        assert float((gk[n] - gp[n]).abs().max()) <= 1e-5 * scale, n
+
+
+@pytest.mark.cuda
+def test_liquid_step_makes_zero_launches(cuda_device, tmp_path):
+    # Config #3's route: no curl, the scalar gradient in plain torch, so a
+    # step (also with the flip, from the device cache) and a generated
+    # batch launch no FD kernel.
+    c = Config(data_dir=_tiny_set(tmp_path, "liq", 1), dataset="liq",
+               data_type="levelset", filters=8, num_conv=1, batch_size=4,
+               num_worker=1, log_dir=str(tmp_path), augment_flip_x=True,
+               device_data_cache=True)
+    t = Trainer(c, device=cuda_device)
+    zeros = dict.fromkeys(cuda_fd.launch_counts, 0)
+    cuda_fd.reset_launch_counts()
+    aux = t.train(num_steps=3)
+    fields = t.generate(np.zeros((5, 3), np.float32))
+    torch.cuda.synchronize()
+    assert np.isfinite(aux["loss"]) and fields.shape == (5, 32, 24, 1)
+    assert cuda_fd.launch_counts == zeros
+
+
+@pytest.mark.cuda
+def test_sweep_on_device_pins_its_host_buffer(cuda_device):
+    from deepfluids_tpu_torch.infer.sweep import (
+        param_grid,
+        sweep_generator,
+        sweep_on_device,
+    )
+
+    m = Manifest(param_names=["pos", "size", "frame"],
+                 param_ranges=[[0.2, 0.8], [0.04, 0.12], [0.0, 3.0]],
+                 num_scenes=6, num_frames=4, resolution=[16, 12],
+                 num_channels=2, v_range=[-2.0, 2.0])
+    w = torch.randn(3, 16 * 12 * 2, generator=torch.Generator().manual_seed(
+        18))
+
+    def apply_fn(p):
+        return (p @ w.to(p.device)).view(-1, 16, 12, 2)
+
+    raw = param_grid(m, (3, 2))
+    got = sweep_on_device(apply_fn, m, raw, batch_size=5,
+                          device=cuda_device)
+    assert torch.from_numpy(got).is_pinned()       # one segment, no copy
+    want = np.concatenate(list(sweep_generator(apply_fn, m, raw, 5,
+                                               device="cpu")))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    seg = sweep_on_device(apply_fn, m, raw, batch_size=4,
+                          max_out_bytes=1, device=cuda_device)
+    np.testing.assert_allclose(seg, got, atol=1e-5, rtol=1e-5)

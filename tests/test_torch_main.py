@@ -28,6 +28,7 @@ from deepfluids_tpu_torch.config import Config as PortConfig  # noqa: E402
 from deepfluids_tpu_torch.infer.sweep import (  # noqa: E402
     run_test_sweep,
     sweep_generator,
+    sweep_on_device,
 )
 from deepfluids_tpu_torch.main import main as torch_main  # noqa: E402
 from deepfluids_tpu_torch.ops import cuda_fd  # noqa: E402
@@ -190,19 +191,17 @@ def test_missing_weights_names_the_export(runs, tmp_path):
                    device="cpu")
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"is_train": True, "augment_flip_x": True}, "Queue A item 9"),
+@pytest.mark.parametrize("kw,exc,match", [
     ({"is_train": False, "arch": "ae", "spatial_shard": True},
-     "Queue A item 11"),
+     NotImplementedError, "Queue A item 11"),
+    # The JAX trainer's refusal, with its message.
     ({"is_train": False, "arch": "nn", "ae_load_path": "ae",
-      "decoder": "grid"}, "Queue A item 10"),
-    ({"is_train": False, "decoder": "grid"}, "Queue A item 10"),
-    ({"is_train": False, "embed_bands": 2}, "Queue A item 10"),
-    ({"is_train": False, "spectral_modes": 4}, "Queue A item 10"),
-    ({"is_train": False, "spatial_shard": True}, "Queue A item 11")])
-def test_unported_paths_raise(runs, kw, match):
+      "decoder": "grid"}, ValueError, "applies to arch de"),
+    ({"is_train": False, "spatial_shard": True}, NotImplementedError,
+     "Queue A item 11")])
+def test_unported_paths_raise(runs, kw, exc, match):
     cfg = _port_cfg(runs["env"], load_path=runs["torch_run"], **kw)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         torch_main(cfg, device="cpu")
 
 
@@ -218,7 +217,8 @@ def test_main_without_a_card_raises(runs, is_train, monkeypatch):
         torch_main(cfg)
 
 
-@pytest.mark.parametrize("fn", [Trainer, sweep_generator, run_test_sweep])
+@pytest.mark.parametrize("fn", [Trainer, sweep_generator, run_test_sweep,
+                                sweep_on_device])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 

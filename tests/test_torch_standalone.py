@@ -1,7 +1,8 @@
 """The port stands alone: it imports nothing of jax or of the JAX package,
 and its own copies of the JAX package's numpy-only modules (``config``,
 ``data.manifest``, ``data.dataset``, ``data.native_npz``,
-``infer.score``) behave as the originals on the same inputs.
+``infer.score``) behave as the originals on the same inputs; its
+``train.augment`` runs with jax refused and gives the JAX module's signs.
 """
 
 import dataclasses
@@ -26,9 +27,8 @@ from deepfluids_tpu_torch.infer import score as tscore
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Refuses jax and the JAX package (the exact top-level name, not
-# deepfluids_tpu_torch), then imports every module of the port and
-# chip_smoke.py.
-_IMPORT_ALL = """
+# deepfluids_tpu_torch) ...
+_REFUSE = """
 import importlib, importlib.abc, pkgutil, sys
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -38,6 +38,9 @@ class Refuse(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Refuse())
+"""
+# ... then imports every module of the port and chip_smoke.py.
+_IMPORT_ALL = _REFUSE + """
 import deepfluids_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     deepfluids_tpu_torch.__path__, "deepfluids_tpu_torch.")]
@@ -55,6 +58,44 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert int(out.stdout.split()[-1]) >= 20   # every module was imported
+
+
+# The augmentation with jax refused: the signs, a mask and a flip.
+_AUGMENT = _REFUSE + """
+import torch
+from deepfluids_tpu_torch.data import Manifest
+from deepfluids_tpu_torch.train import augment
+
+m = Manifest(param_names=["drop_x_pos", "drop_radius", "frame"],
+             param_ranges=[[0.25, 0.75], [0.06, 0.15], [0.0, 199.0]],
+             num_scenes=40, num_frames=200, resolution=[8, 6],
+             num_channels=1, v_range=[-1.0, 1.0], data_type="levelset")
+chan, psign = augment.flip_signs(m)
+mask = augment.flip_mask(0, 3, 16)
+x, y = augment.flip_x_batch(torch.ones(16, 8, 6, 1), torch.ones(16, 3),
+                            mask, chan, psign)
+print(chan.tolist(), psign.tolist(), int(mask.sum()), float(y[:, 0].sum()))
+"""
+
+
+def test_augment_runs_without_jax():
+    from deepfluids_tpu.train import augment as jaugment
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _AUGMENT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    words = out.stdout.split()
+    flipped, ysum = int(words[-2]), float(words[-1])
+    assert 0 < flipped < 16 and ysum == 16 - 2 * flipped
+    m = tmanifest.Manifest(
+        param_names=["drop_x_pos", "drop_radius", "frame"],
+        param_ranges=[[0.25, 0.75], [0.06, 0.15], [0.0, 199.0]],
+        num_scenes=40, num_frames=200, resolution=[8, 6], num_channels=1,
+        v_range=[-1.0, 1.0], data_type="levelset")
+    want = [np.asarray(a).tolist() for a in jaugment.flip_signs(m)]
+    assert out.stdout.startswith(f"{want[0]} {want[1]} ")
 
 
 # --- config ----------------------------------------------------------------

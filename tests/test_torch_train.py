@@ -355,7 +355,6 @@ def test_steps_per_call_rounds_up_like_jax(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"augment_flip_x": True}, "Queue A item 9"),
     ({"input_pipeline": "grain"}, "Queue A item 11"),
     ({"num_model_shards": 2}, "Queue A item 11"),
     ({"num_data_shards": 2}, "Queue A item 11"),
