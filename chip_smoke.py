@@ -66,7 +66,26 @@ exits non-zero:
   8. ``sweep_on_device`` over the full 2D grid (21 000 fields, 2 GB) at
      batch 512, a batch against ``sweep_generator``, and its fields/s;
   9. one forward of config #5's generator with every knob (random gains
-     and bases, f32, curl applied) on the card against the CPU.
+     and bases, f32, curl applied) on the card against the CPU;
+ 10. the datagen, through the scene functions at each configuration's full
+     width (scene and frame counts cut for the time limit, the cut
+     printed): ``smoke_pos21_size5`` at 128x96 x 200 frames, a 5 x 3
+     sub-grid in one scene batch with the jacobi projection and 2 x 2
+     with the matched one (frames finite, density rising, the manifest's
+     fields, every frame's distance to range(curl2d), matched frames
+     under 1e-3 with zero wall through-flow, launch counts of the curl
+     kernels exact for the matched run and zero for the jacobi one);
+     ``smoke3_vel5_buo3`` at 32x64x112 (3 scenes x a 50-frame segment
+     jacobi, 1 scene x 4 frames matched, the 3D multigrid setup timed);
+     ``liquid_pos10_size4`` (4 scenes x 60 frames, particles and P2G mass
+     conserved) and ``smoke_mov`` (4 x 64, params equal to numpy's
+     knots); one step of each solver on the card against the port on the
+     CPU from a shared state; the matched projection through the kernels
+     against the plain ops; then ``main --is_train True`` on the 2D set
+     the card just wrote (loss falling) and ``render_density_sweep`` of a
+     scene through the trained generator against the set's d/ frames; and
+     the solvers' frames/s, idle shares and launches a frame (printed
+     only).
 
 Then it prints the kernels as one JSON line, the card's name and power
 limit as nvidia-smi gives them, and, last, the ``{"ok": true, ...}`` line.
@@ -95,16 +114,20 @@ TOL_GRAD = 1e-5       # and for a gradient
 BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative to the value, at most
 TOL_PARITY = 1e-3     # the repo's normalized-L2 parity gate
 # Kernel-check shapes (batch + spatial).  2D: 8 is the training batch, 32
-# the serving sweep's (--test_batch_size), 512 the timed one; (4, 2, 5) is
+# the serving sweep's (--test_batch_size), 512 the timed one; 4 is the
+# matched datagen's scene batch, 16 and 64 its multigrid setup's probe
+# batches (diagonal colours, the coarsest level's dense probe); (4, 2, 5) is
 # below the backward kernels' minimum extent.  3D: config #5's grid at the
-# same batches, odd extents, the smallest backward grid, D, H or W = 2, and
+# same batches and at 48 (the 3D setup's probe batch), odd extents, the smallest backward grid, D, H or W = 2, and
 # for the backward kernels' bricks: rows whose bytes are no multiple of 16
 # (W = 37, 113, 5, 11), ragged last bricks along z and y, D below one brick
 # of planes (3, 4), and W wider than a brick's plane (1100: column tiles).
 KERNEL_SHAPES = {
-    2: [(1, 128, 96), (8, 128, 96), (32, 128, 96), (512, 128, 96),
+    2: [(1, 128, 96), (4, 128, 96), (8, 128, 96), (16, 128, 96),
+        (32, 128, 96), (64, 128, 96), (512, 128, 96),
         (3, 8, 8), (2, 16, 12), (4, 2, 5)],
     3: [(1, 32, 64, 112), (8, 32, 64, 112), (32, 32, 64, 112),
+        (48, 32, 64, 112),
         (2, 5, 6, 7), (1, 3, 3, 3), (1, 2, 6, 7), (1, 5, 2, 7),
         (1, 5, 6, 2), (2, 9, 13, 37), (1, 33, 65, 113), (3, 4, 7, 5),
         (2, 3, 9, 11), (1, 4, 5, 1100)],
@@ -366,6 +389,27 @@ def plain_fd_ops():
     finally:
         for n, fn in saved.items():
             setattr(cuda_fd, n + "_p", fn)
+
+
+@contextlib.contextmanager
+def plain_projection_ops():
+    """The matched projection's curl and its transpose through the plain
+    ``ops/fd.py`` functions instead of the kernels: its operators look the
+    four functions up on the module at call time."""
+    from deepfluids_tpu_torch.datagen import projection
+    from deepfluids_tpu_torch.ops import fd
+
+    plain = {"_curl": lambda psi: fd.curl2d(psi[..., None]),
+             "_curl_adj": projection._curl_adj_plain,
+             "_curl3": fd.curl3d, "_curl3_adj": projection._curl3_adj_plain}
+    saved = {n: getattr(projection, n) for n in plain}
+    for n, fn in plain.items():
+        setattr(projection, n, fn)
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(projection, n, fn)
 
 
 def expected_launches(counts: dict) -> dict:
@@ -1903,6 +1947,633 @@ def phase_liquid_knob_timing(device, train: dict, serving: dict,
     return out
 
 
+# Phase 10's cut of each published scene: (scene function kwargs, what the
+# published scene has).  Full width and frame length everywhere except the
+# 3D matched run; the scene counts are cut for the time limit.
+DATAGEN_CUTS = {
+    "2d_jacobi": (dict(num_pos=5, num_size=3, scene_batch=15),
+                  "5 x 3 of the 21 x 5 scenes, all 200 frames"),
+    "2d_matched": (dict(num_pos=2, num_size=2, scene_batch=4,
+                        projection="matched", name="smoke_matched"),
+                   "2 x 2 of the 21 x 5 scenes, all 200 frames"),
+    "3d_jacobi": (dict(num_vel=3, num_buo=1, num_frames=50),
+                  "3 x 1 of the 5 x 3 scenes, one 50-frame segment of 250"),
+    "3d_matched": (dict(num_vel=1, num_buo=1, num_frames=4,
+                        projection="matched", name="smoke3_matched"),
+                   "1 of the 5 x 3 scenes, 4 of 250 frames"),
+    "liquid": (dict(num_pos=2, num_size=2, num_frames=60),
+               "2 x 2 of the 10 x 4 scenes, 60 of 200 frames"),
+    "mov": (dict(num_scenes=4, num_frames=64),
+            "4 of 200 scenes, 64 of 400 frames"),
+}
+DATAGEN_TRAIN_STEPS = 200   # of main on the 2D set phase 10 wrote
+TOL_STEP = 1e-5        # one smoke step, card vs CPU, normalized L2
+TOL_LIQUID_STEP = 1e-4  # one FLIP step: the scatter's atomics reorder sums
+TOL_MANIFOLD = 1e-3    # a matched frame's distance to range(curl2d)
+
+
+def manifold_distance(frames, project) -> np.ndarray:
+    """Relative distance of each of ``frames [N, ..., C]`` (a tensor on the
+    card) to the range of the model's curl: the norm of what ``project``
+    (``project_curl2d`` / ``3d``) removes, over the frame's.  The V-cycles
+    solve to the f32 floor only, so the removed part is projected again
+    twice: each pass takes off what the one before left on the manifold."""
+    r = frames
+    for _ in range(3):
+        r = r - project(r)
+    dims = tuple(range(1, frames.dim()))
+    import torch
+
+    norm = torch.linalg.vector_norm
+    return (norm(r, dim=dims) / norm(frames, dim=dims).clamp(min=1e-30)
+            ).cpu().numpy()
+
+
+def _load_frames(ds: str, key: str, names: list[str]) -> np.ndarray:
+    out = []
+    for n in names:
+        with np.load(os.path.join(ds, key, n)) as d:
+            out.append(d["x"])
+    return np.stack(out)
+
+
+@contextlib.contextmanager
+def recording_projection_shapes(shapes: set):
+    """Adds to ``shapes`` every shape (batch + spatial) at which the matched
+    projection hands a tensor on the card to a kernel wrapper."""
+    from deepfluids_tpu_torch.datagen import projection
+
+    batched = projection._batched
+
+    def recording(fn, x, spatial, channels):
+        if x.is_cuda:
+            grid = tuple(x.shape[x.dim() - spatial - 1:-1])
+            shapes.add((x.numel() // (math.prod(grid) * x.shape[-1]),) + grid)
+        return batched(fn, x, spatial, channels)
+
+    projection._batched = recording
+    try:
+        yield
+    finally:
+        projection._batched = batched
+
+
+def _run_scene(ctx, tag: str, fn, kwargs: dict, want: dict) -> str:
+    """A scene function on the card (its default device) from launch
+    counts at 0; its launches must be ``want``.  Records its seconds, the
+    seconds inside np.savez_compressed and the launches under ``tag`` and
+    returns the dataset's directory."""
+    import torch
+
+    from deepfluids_tpu_torch.datagen import scenes
+    from deepfluids_tpu_torch.ops import cuda_fd
+
+    saved, save_frames = [0.0], scenes._save_frames
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        save_frames(*a, **k)
+        saved[0] += time.perf_counter() - t0
+
+    scenes._save_frames = timed_save
+    try:
+        cuda_fd.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording_projection_shapes(ctx.shapes):
+            out = fn(ctx.data, **kwargs)
+        ctx.secs[tag] = time.perf_counter() - t0
+    finally:
+        scenes._save_frames = save_frames
+    ctx.save_s[tag] = saved[0]
+    ctx.launches[tag] = dict(cuda_fd.launch_counts)
+    if ctx.launches[tag] != expected_launches(want):
+        raise AssertionError(f"datagen {tag} launched {ctx.launches[tag]}, "
+                             f"want {want}")
+    return out
+
+
+def _check_set(ds: str, keys: tuple, scenes_n: int, frames: int,
+               field_shape: tuple, counts) -> "Manifest":
+    """The on-disk contract of a generated set: args.txt's fields and one
+    file per scene and frame under each key."""
+    from deepfluids_tpu_torch.data import load_manifest
+
+    m = load_manifest(ds)
+    for k in keys:
+        n = len(os.listdir(os.path.join(ds, k)))
+        if n != scenes_n * frames:
+            raise AssertionError(f"{ds}/{k}: {n} files, want "
+                                 f"{scenes_n * frames}")
+    ok = (m.num_scenes == scenes_n and m.num_frames == frames
+          and tuple(m.field_shape) == field_shape
+          and m.param_counts == counts and m.param_names[-1] == "frame"
+          and np.isfinite(m.v_range).all() and m.v_range[0] < m.v_range[1]
+          and m.param_ranges[-1] == [0.0, float(frames - 1)])
+    if not ok:
+        raise AssertionError(f"{ds}: manifest {m}")
+    return m
+
+
+# The four liquid scenes of phase 10 (the corners of the published grid).
+LIQUID_POS = [0.25, 0.25, 0.75, 0.75]
+LIQUID_RAD = [0.06, 0.15, 0.06, 0.15]
+
+
+def datagen_setups(ctx) -> None:
+    """The 2D and 3D multigrid setups of the matched projection, each timed
+    on its own line (built once on the card, cached)."""
+    import torch
+
+    from deepfluids_tpu_torch.datagen import projection
+    from deepfluids_tpu_torch.ops import cuda_fd
+
+    setups = {}
+    for tag, op, shape in (("2D", "curl_ls", (128, 96)),
+                           ("3D", "curl3_ls", (32, 64, 112, 3))):
+        cuda_fd.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording_projection_shapes(ctx.shapes):
+            setups[tag] = projection._mg_setup(op, shape, torch.float32,
+                                               ctx.device)
+        torch.cuda.synchronize()
+        probes = {k: v for k, v in cuda_fd.launch_counts.items() if v}
+        print(f"phase 10 datagen [{ctx.card}]: {tag} matched-projection "
+              f"multigrid setup ({op} on {shape}: levels "
+              f"{setups[tag]['shapes']}, diagonal probes, 60 power "
+              f"iterations a level, the coarsest level's dense probe and "
+              f"pinv) {time.perf_counter() - t0:.2f} s on the card, kernel "
+              f"launches {probes}", flush=True)
+    # Applications of the fine operator in one V(2,2)-cycle: every level
+    # but the coarsest smooths 4 times and takes one residual, and each of
+    # these chains through the fine operator once.
+    ctx.per_cycle = {k: 5 * (len(v["shapes"]) - 1)
+                     for k, v in setups.items()}
+
+
+
+def datagen_smoke2d(ctx) -> None:
+    """``smoke_pos21_size5`` at 128x96 through the scene function, jacobi
+    and matched: the set's contract, the frames' distance to the manifold
+    and the launch counts."""
+    import torch
+
+    from deepfluids_tpu_torch.datagen import projection, scenes, smoke2d
+
+    kw, cut = DATAGEN_CUTS["2d_jacobi"]
+    f2 = ctx.f2 = kw.get("num_frames", 200)  # frames of both 2D runs
+    ctx.ds_2d = _run_scene(ctx, "2d_jacobi", scenes.smoke_pos21_size5, kw,
+                           {})
+    m_j = _check_set(ctx.ds_2d, ("v", "d"), 15, f2, (128, 96, 2), [5, 3])
+    kw_m, cut_m = DATAGEN_CUTS["2d_matched"]
+    cycles = smoke2d.Smoke2DConfig().mg_cycles
+    # per frame: the right-hand side's transposed curl, every V-cycle's
+    # fine applications (one curl and one transposed curl each), the final
+    # curl; one scene batch, so once for all its scenes
+    n2 = f2 * (cycles * ctx.per_cycle["2D"] + 1)
+    ds_m = _run_scene(ctx, "2d_matched", scenes.smoke_pos21_size5, kw_m,
+                      {"curl2d_fused": n2, "curl2d_bwd": n2})
+    _check_set(ds_m, ("v", "d"), 4, f2, (128, 96, 2), [2, 2])
+    dist = {}
+    for tag, ds, scene_ids in (("jacobi", ctx.ds_2d, ["0_0", "2_1", "4_2"]),
+                               ("matched", ds_m, ["0_0", "1_1"])):
+        names = [f"{s}_{f}.npz" for s in scene_ids for f in range(f2)]
+        v = _load_frames(ds, "v", names)
+        d = _load_frames(ds, "d", names).reshape(len(scene_ids), f2, -1)
+        if not (np.isfinite(v).all() and np.isfinite(d).all()
+                and (d[:, -1].sum(1) > d[:, 0].sum(1)).all()
+                and (d[:, 0].sum(1) > 0).all()):
+            raise AssertionError(f"2D {tag} frames: not finite, or the "
+                                 f"density does not rise")
+        vt = torch.from_numpy(v).to(ctx.device)
+        dist[tag] = manifold_distance(
+            vt, lambda x: projection.project_curl2d(x, cycles=12))
+        if tag == "jacobi":
+            # For context: the orthogonal distance to ker(div_f), the
+            # manifold without the closed box's wall constraint.
+            free = manifold_distance(
+                vt, lambda x: projection.project_matched(x, cycles=12))
+        if tag == "matched":
+            wall = max(np.abs(v[:, :, (0, -1), 0]).max(),
+                       np.abs(v[:, (0, -1), :, 1]).max())
+            if not (dist[tag].max() < TOL_MANIFOLD and wall == 0.0):
+                raise AssertionError(
+                    f"matched 2D frames: distance to range(curl2d) up to "
+                    f"{dist[tag].max():.2e} (tol {TOL_MANIFOLD}), wall "
+                    f"through-flow {wall}")
+    print(f"phase 10 datagen 2D: ok  smoke_pos21_size5 128x96 through the "
+          f"scene function on its default device: jacobi {cut} in one "
+          f"scene batch of 15 ({ctx.secs['2d_jacobi']:.2f} s, "
+          f"{ctx.save_s['2d_jacobi']:.2f} s of it in np.savez_compressed; "
+          f"no FD "
+          f"launch); matched {cut_m} in one scene batch of 4 "
+          f"({ctx.secs['2d_matched']:.2f} s, {ctx.save_s['2d_matched']:.2f} s "
+          f"saving; curl2d_fused = curl2d_bwd = {n2} launches = {f2} frames "
+          f"x ({cycles} V-cycles x {ctx.per_cycle['2D']} fine applications + "
+          f"1), exact); files, args.txt (param_counts, v_range "
+          f"{m_j.v_range[0]:.3f}..{m_j.v_range[1]:.3f}), finite, density "
+          f"rising; relative distance of a frame to range(curl2d), median "
+          f"over {3 * f2} / {2 * f2} frames: jacobi "
+          f"{np.median(dist['jacobi']):.4f} "
+          f"(the reference claims 0.247; to ker(div_f), without the "
+          f"wall constraint, {np.median(free):.4f}), matched "
+          f"{np.median(dist['matched']):.2e} (max "
+          f"{dist['matched'].max():.2e}, tol {TOL_MANIFOLD}), matched wall "
+          f"through-flow exactly 0", flush=True)
+
+
+
+def datagen_smoke3d(ctx) -> None:
+    """``smoke3_vel5_buo3`` at 32x64x112: a jacobi segment of three scenes
+    and a few matched frames of one."""
+    import torch
+
+    from deepfluids_tpu_torch.datagen import projection, scenes, smoke3d
+
+    kw3, cut3 = DATAGEN_CUTS["3d_jacobi"]
+    f3 = ctx.f3 = kw3["num_frames"]
+    ctx.ds_3d = _run_scene(ctx, "3d_jacobi", scenes.smoke3_vel5_buo3, kw3,
+                           {})
+    _check_set(ctx.ds_3d, ("v", "d"), 3, f3, (32, 64, 112, 3), [3, 1])
+    kw3m, cut3m = DATAGEN_CUTS["3d_matched"]
+    cycles3 = smoke3d.Smoke3DConfig().mg_cycles
+    n3 = kw3m["num_frames"] * (cycles3 * ctx.per_cycle["3D"] + 1)
+    ds_3m = _run_scene(ctx, "3d_matched", scenes.smoke3_vel5_buo3, kw3m,
+                       {"curl3d_fused": n3, "curl3d_bwd": n3})
+    _check_set(ds_3m, ("v", "d"), 1, kw3m["num_frames"], (32, 64, 112, 3),
+               [1, 1])
+    dist3 = {}
+    for tag, ds, names in (
+            ("jacobi", ctx.ds_3d, [f"{s}_0_{f}.npz" for s in range(3)
+                              for f in (f3 // 5, f3 // 2, f3 - 1)]),
+            ("matched", ds_3m, [f"0_0_{f}.npz" for f in range(
+                kw3m["num_frames"])])):
+        v = _load_frames(ds, "v", names)
+        d = _load_frames(ds, "d", names)
+        if not (np.isfinite(v).all() and np.isfinite(d).all()
+                and d[-1].sum() > 0):
+            raise AssertionError(f"3D {tag} frames are not finite")
+        dist3[tag] = manifold_distance(
+            torch.from_numpy(v).to(ctx.device),
+            lambda x: projection.project_curl3d(x, cycles=cycles3))
+    print(f"phase 10 datagen 3D: ok  smoke3_vel5_buo3 32x64x112: jacobi "
+          f"{cut3} ({ctx.secs['3d_jacobi']:.2f} s, "
+          f"{ctx.save_s['3d_jacobi']:.2f} s "
+          f"saving; no FD launch); matched {cut3m} "
+          f"({ctx.secs['3d_matched']:.2f} s; curl3d_fused = curl3d_bwd = {n3} "
+          f"launches = {kw3m['num_frames']} frames x ({cycles3} V-cycles x "
+          f"{ctx.per_cycle['3D']} + 1), exact); relative distance to "
+          f"range(curl3d), median: jacobi {np.median(dist3['jacobi']):.4f}, "
+          f"matched {np.median(dist3['matched']):.2e}", flush=True)
+
+
+
+def datagen_liquid_mov(ctx) -> None:
+    """``liquid_pos10_size4`` (with the particle and mass invariants read
+    off every P2G scatter of that run) and ``smoke_mov`` (its params against
+    numpy's knots)."""
+    import torch
+
+    from deepfluids_tpu_torch.datagen import liquid2d, scenes
+
+    kwl, cutl = DATAGEN_CUTS["liquid"]
+    fl = kwl["num_frames"]
+    # The invariants are read off the scene function's own run: every P2G
+    # scatter it makes reports its summed grid mass and the active count.
+    p2g, seen = liquid2d._p2g, []
+
+    def recording_p2g(py, px, pvy, pvx, active, h, w):
+        vel, mass = p2g(py, px, pvy, pvx, active, h, w)
+        seen.append((mass.sum(dim=(1, 2)), active.sum(dim=1)))
+        return vel, mass
+
+    liquid2d._p2g = recording_p2g
+    try:
+        ds_l = _run_scene(ctx, "liquid", scenes.liquid_pos10_size4, kwl, {})
+    finally:
+        liquid2d._p2g = p2g
+    _check_set(ds_l, ("l", "v"), 4, fl, (128, 96, 1), [2, 2])
+    ls = _load_frames(ds_l, "l", [f"{i}_{j}_{f}.npz" for i in range(2)
+                                  for j in range(2) for f in (0, fl - 1)])
+    if not (np.isfinite(ls).all() and (ls.reshape(8, -1).min(1) < 0).all()):
+        raise AssertionError("liquid levelsets: not finite, or no liquid in "
+                             "a first or last frame")
+    masses = torch.stack([m for m, _ in seen])        # [scatters, 4]
+    counts = torch.stack([c for _, c in seen])
+    count = counts[0]
+    worst_mass = float(((masses - counts).abs() / counts).max())
+    if not (len(seen) >= fl and masses.shape[1] == 4
+            and bool((count > 0).all()) and bool((counts == count).all())
+            and worst_mass < 1e-5):
+        raise AssertionError(
+            f"liquid: {len(seen)} P2G scatters over {fl} frames, active "
+            f"particles {counts.min(0).values.tolist()}.."
+            f"{counts.max(0).values.tolist()}, summed mass off the count by "
+            f"{worst_mass:.2e}")
+    kwm, cutm = DATAGEN_CUTS["mov"]
+    fm = kwm["num_frames"]
+    n_knots = max(fm // 40, 2)
+    ds_v = _run_scene(ctx, "mov", scenes.smoke_mov, kwm, {})
+    m_v = _check_set(ds_v, ("v", "d"), 4, fm, (128, 96, 2), None)
+    rng = np.random.default_rng(0)
+    for s in range(4):
+        knots = rng.uniform(0.2, 0.8, size=n_knots)
+        want = np.stack([np.interp(np.linspace(0, n_knots - 1, fm),
+                                   np.arange(n_knots), knots
+                                   ).astype(np.float32),
+                         np.arange(fm, dtype=np.float32)], axis=1)
+        got = np.stack([np.load(os.path.join(ds_v, "v", f"{s}_{f}.npz"))["y"]
+                        for f in range(fm)])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"smoke_mov scene {s}: params differ from "
+                                 f"numpy's knots")
+    print(f"phase 10 datagen liquid+mov: ok  liquid_pos10_size4 128x96 "
+          f"{cutl} ({ctx.secs['liquid']:.2f} s, {ctx.save_s['liquid']:.2f} s "
+          f"saving): levelsets finite, liquid in every first and last "
+          f"frame, {int(count.sum())} active particles of 4 scenes constant "
+          f"and the summed grid mass within {worst_mass:.1e} of them in each "
+          f"of the run's own {len(seen)} P2G scatters; smoke_mov 128x96 {cutm} ({ctx.secs['mov']:.2f} s, "
+          f"{ctx.save_s['mov']:.2f} s saving): params [pos_x(t), frame] equal "
+          f"numpy's default_rng(0) knots, {m_v.num_param} params; no FD "
+          f"launch in either", flush=True)
+
+
+
+def datagen_steps(ctx) -> None:
+    """One f32 step of each solver from a shared mid-trajectory state, the
+    card against the port on the CPU, and the matched projection through
+    the kernels against the plain ops on the card."""
+    import torch
+
+    from deepfluids_tpu_torch.datagen import (liquid2d, projection, smoke2d,
+                                              smoke3d)
+    from deepfluids_tpu_torch.ops import cuda_fd
+    from deepfluids_tpu_torch.utils.parity import normalized_l2
+
+    cfg_l = liquid2d.Liquid2DConfig()
+    def l2(a, b):
+        return normalized_l2(a.cpu().numpy(), b.numpy())
+
+    def both(fn, *xs):
+        """``fn`` on the card and on the CPU, same inputs."""
+        with torch.no_grad():
+            return (fn(*[x.to(ctx.device) for x in xs]), fn(*xs))
+
+    steps = {}
+    mid = [f"2_1_{ctx.f2 // 2}.npz"]
+    vel = torch.from_numpy(_load_frames(ctx.ds_2d, "v", mid))
+    rho = torch.from_numpy(_load_frames(ctx.ds_2d, "d", mid))[..., 0]
+    mask = smoke2d._source_mask(128, 96, torch.tensor([0.5]),
+                                torch.tensor([0.08]), 0.08)
+    for proj in ("jacobi", "matched"):
+        cfg2 = smoke2d.Smoke2DConfig(projection=proj)
+        (cv, cr), (hv, hr) = both(
+            lambda v, r, m: smoke2d.step((v, r), m, cfg2), vel, rho, mask)
+        steps[f"smoke2d {proj}"] = max(l2(cv, hv), l2(cr, hr))
+    mid = [f"1_0_{ctx.f3 // 2}.npz"]
+    vel3 = torch.from_numpy(_load_frames(ctx.ds_3d, "v", mid))
+    rho3 = torch.from_numpy(_load_frames(ctx.ds_3d, "d", mid))[..., 0]
+    cfg3 = smoke3d.Smoke3DConfig()
+    (cv, cr), (hv, hr) = both(
+        lambda v, r, m: smoke3d._step3((v, r), 1.0, 0.04, m, cfg3), vel3,
+        rho3, smoke3d._source_mask3(32, 64, 112))
+    steps["smoke3d jacobi"] = max(l2(cv, hv), l2(cr, hr))
+    bad = {k: v for k, v in steps.items() if not v < TOL_STEP}
+    # the liquid: a shared mid-trajectory particle state, made on the CPU
+    one = torch.tensor([0.5]), torch.tensor([0.1])
+    lpy, lpx, lpvy, lpvx, lact = liquid2d._seed_particles(
+        128, 96, *one, cfg_l.basin_level)
+    lstate = (lpy, lpx, lpvy, lpvx)
+    with torch.no_grad():
+        for _ in range(12):
+            lstate, _ = liquid2d._step(lstate, lact, cfg_l)
+    (cs, (cphi, cvel)), (hs, (hphi, hvel)) = both(
+        lambda a, *st: liquid2d._step(st, a, cfg_l), lact, *lstate)
+    steps["liquid"] = max([l2(cvel, hvel)] + [l2(a, b) for a, b in
+                                              zip(cs, hs)])
+    if bad or not steps["liquid"] < TOL_LIQUID_STEP:
+        raise AssertionError(f"one solver step, card vs CPU: {steps}")
+    # the matched projection through the kernels against the plain ops, at
+    # the scene batches of the matched scene runs (4 in 2D, 1 in 3D)
+    vel4 = torch.from_numpy(_load_frames(
+        ctx.ds_2d, "v", [f"{s}_{ctx.f2 // 2}.npz"
+                         for s in ("0_0", "2_1", "4_2", "1_2")]))
+    kp = {}
+    for tag, fn, x in (("2D", projection.project_curl2d, vel4.to(ctx.device)),
+                       ("3D", projection.project_curl3d, vel3.to(ctx.device))):
+        cuda_fd.reset_launch_counts()
+        through = fn(x, cycles=8)
+        launched = dict(cuda_fd.launch_counts)
+        cuda_fd.reset_launch_counts()
+        with plain_projection_ops():
+            plain = fn(x, cycles=8)
+        n = 8 * ctx.per_cycle[tag] + 1
+        want = expected_launches({f"curl{tag[0]}d_fused": n,
+                                  f"curl{tag[0]}d_bwd": n})
+        if any(cuda_fd.launch_counts.values()) or launched != want:
+            raise AssertionError(f"{tag} matched projection: launches "
+                                 f"{launched} through the kernels (want "
+                                 f"{n} each), "
+                                 f"{dict(cuda_fd.launch_counts)} plain")
+        kp[tag] = normalized_l2(through.cpu().numpy(), plain.cpu().numpy())
+        if not kp[tag] <= TOL_KERNEL:
+            raise AssertionError(f"{tag} matched projection, kernels vs "
+                                 f"plain ops: L2 {kp[tag]:.2e}")
+    print(f"phase 10 datagen steps: ok  one f32 step from a shared "
+          f"mid-trajectory state, card vs the port on the CPU, normalized "
+          f"L2: " + ", ".join(f"{k} {v:.1e}" for k, v in steps.items())
+          + f" (tol {TOL_STEP}; the liquid's {TOL_LIQUID_STEP}, grid "
+          f"velocity and particle state: its P2G scatter sums with atomics "
+          f"on the card, in no fixed order); the matched projection (8 "
+          f"V-cycles) through the kernels vs through the plain ops/fd.py "
+          f"functions on the card: 2D [4,128,96] {kp['2D']:.1e}, 3D "
+          f"[1,32,64,112] {kp['3D']:.1e} "
+          f"(tol {TOL_KERNEL})", flush=True)
+
+
+
+def datagen_loop(ctx) -> None:
+    """The loop closed: ``main`` trains the flagship generator on the 2D
+    set the card just wrote, and ``render_density_sweep`` advects a density
+    through the trained generator's fields."""
+    import torch
+
+    from deepfluids_tpu_torch.config import load_config
+    from deepfluids_tpu_torch.infer import render_density_sweep
+    from deepfluids_tpu_torch.ops import cuda_fd
+    from deepfluids_tpu_torch.train.trainer import Trainer
+    from deepfluids_tpu_torch.utils.parity import normalized_l2
+
+    logs = os.path.join(ctx.root, "logs")
+    n_train = DATAGEN_TRAIN_STEPS
+    dataset = os.path.basename(ctx.ds_2d)
+    argv = ["--is_train", "True", "--arch", "de", "--data_dir", ctx.data,
+            "--dataset", dataset, "--log_dir", logs, "--tag", "datagen",
+            "--batch_size", "8", "--compute_dtype", "bfloat16",
+            "--log_step", "20", "--save_step", str(n_train // 2),
+            "--test_step", str(n_train // 2),
+            "--num_worker", "4", "--filters", str(FLAGSHIP["filters"]),
+            "--num_conv", str(FLAGSHIP["num_conv"]), "--max_step",
+            str(n_train)]
+    want = expected_launches({
+        k: n_train * n + 2 * PATH_2D.forward_launches.get(k, 0)
+        for k, n in PATH_2D.step_launches.items()})
+    _, train_s, ctx.launches["train"] = _drive(
+        ctx.device, argv, want, "training on the generated 2D set")
+    run = os.path.join(logs, f"{dataset}_datagen")
+    first, last = _falls(_metrics(run), n_train,
+                         "training on the generated set")
+    t = Trainer(load_config(run), run_dir=run, device=ctx.device,
+                save_cfg=False)
+    t.restore_weights()
+    scene = np.array([[0.5, 0.08]], np.float32)       # scene 2_1
+    cuda_fd.reset_launch_counts()
+    with torch.inference_mode():
+        rendered = render_density_sweep(t.apply, t.manifest, scene, ctx.f2)
+    ctx.launches["render"] = dict(cuda_fd.launch_counts)
+    sim_d = _load_frames(ctx.ds_2d, "d",
+                         [f"2_1_{f}.npz" for f in range(ctx.f2)])
+    if not (rendered.shape == (1, ctx.f2, 128, 96)
+            and np.isfinite(rendered).all()
+            and rendered[0, -1].sum() > rendered[0, 0].sum()
+            and ctx.launches["render"] == expected_launches(
+                {"curl2d_fused": 1})):
+        raise AssertionError(f"render_density_sweep: {rendered.shape}, "
+                             f"launches {ctx.launches['render']}")
+    render_l2 = normalized_l2(rendered[0], sim_d[..., 0])
+    print(f"phase 10 datagen loop: ok  main --arch de --is_train True "
+          f"flagship bf16 batch 8 on the {15 * ctx.f2} frames the card just "
+          f"wrote ({dataset}): {n_train} steps in {train_s:.2f} s, loss "
+          f"{first:.4f} (step 20) -> {last:.4f} (step {n_train}), a 2D "
+          f"step's "
+          f"launches exact; render_density_sweep of scene 2_1 ({ctx.f2} "
+          f"frames) "
+          f"through the trained generator on the card (curl2d_fused once): "
+          f"density vs the set's own d/ frames normalized L2 "
+          f"{render_l2:.3f} (no gate: {n_train} steps of training)",
+          flush=True)
+
+
+
+def datagen_timing(ctx) -> dict:
+    """Printed only: each solver alone in scene-frames/s at phase 10's
+    scene batches, ``np.savez_compressed``'s share of the scene functions'
+    wall time, and a profile line (idle share, launches) of a 2D jacobi
+    and a 2D matched frame."""
+    import torch
+
+    from deepfluids_tpu_torch.datagen import liquid2d, smoke2d, smoke3d
+
+    def frames_per_s(fn, frames: int, scenes_n: int) -> float:
+        fn(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(frames)
+        torch.cuda.synchronize()
+        return scenes_n * frames / (time.perf_counter() - t0)
+
+    pos15 = torch.linspace(0.2, 0.8, 15)
+    rad15 = torch.full((15,), 0.08)
+    rates = {
+        "2D jacobi, 15 scenes": frames_per_s(
+            lambda n: smoke2d.simulate_smoke2d_batch(
+                pos15, rad15, smoke2d.Smoke2DConfig(num_frames=n)), 40, 15),
+        "2D matched, 4 scenes": frames_per_s(
+            lambda n: smoke2d.simulate_smoke2d_batch(
+                pos15[:4], rad15[:4], smoke2d.Smoke2DConfig(
+                    num_frames=n, projection="matched")), 20, 4),
+        "3D jacobi, 3 scenes": frames_per_s(
+            lambda n: smoke3d.simulate_smoke3d_batch(
+                [0.5, 1.0, 1.5], [0.04] * 3,
+                smoke3d.Smoke3DConfig(num_frames=n)), 10, 3),
+        "3D matched, 1 scene": frames_per_s(
+            lambda n: smoke3d.simulate_smoke3d_batch(
+                [1.0], [0.08], smoke3d.Smoke3DConfig(
+                    num_frames=n, projection="matched")), 3, 1),
+        "liquid, 4 scenes": frames_per_s(
+            lambda n: liquid2d.simulate_liquid2d_batch(
+                LIQUID_POS, LIQUID_RAD, liquid2d.Liquid2DConfig(num_frames=n)),
+            20, 4),
+    }
+    print(f"phase 10 datagen timing [{ctx.card}]: solver alone (no copy, no "
+          f"save), scene-frames/s: "
+          + "; ".join(f"{k} {v:.1f}" for k, v in rates.items()), flush=True)
+    total = sum(ctx.secs.values())
+    print(f"phase 10 datagen timing [{ctx.card}]: np.savez_compressed takes "
+          f"{sum(ctx.save_s.values()):.2f} s of the scene functions' "
+          f"{total:.2f} s ({sum(ctx.save_s.values()) / total:.2f} of their "
+          f"wall time); by scene: " + "; ".join(
+              f"{k} {ctx.save_s[k]:.2f}/{ctx.secs[k]:.2f} s"
+              for k in ctx.secs),
+          flush=True)
+    v15 = torch.zeros((15, 128, 96, 2), device=ctx.device)
+    v15[..., 1] = 0.3
+    r15 = torch.rand((15, 128, 96), device=ctx.device)
+    m15 = smoke2d._source_mask(128, 96, pos15.to(ctx.device),
+                               rad15.to(ctx.device), 0.08)
+    for proj, s in (("jacobi", 15), ("matched", 4)):
+        cfg2 = smoke2d.Smoke2DConfig(projection=proj)
+
+        def one_frame():
+            with torch.no_grad():
+                smoke2d.step((v15[:s], r15[:s]), m15[:s], cfg2)
+
+        # Outside the try below: a failed launch in the frame itself is a
+        # failure, only the profiler's own is tolerated.
+        one_frame()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            one_frame()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 5 * 1e3
+        try:
+            profile_line(f"datagen 2D {proj} frame, {s} scenes [{ctx.card}]",
+                         one_frame, wall_ms)
+        except Exception as e:  # noqa: BLE001 - diagnostics only
+            print(f"profile datagen 2D {proj} frame: not measured "
+                  f"({type(e).__name__}: {e})")
+    return rates
+
+
+def phase_datagen(device, root: str, card: str) -> dict:
+    """Phase 10: the datagen on the card through the scene functions, its
+    checks, the loop closed through ``main``, and its timing lines.
+    Returns the kernel launches of each datagen path."""
+    import types
+
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = types.SimpleNamespace(
+        device=device, root=root, card=card,
+        data=os.path.join(root, "datagen"), launches={}, secs={}, save_s={},
+        shapes=set())
+    datagen_setups(ctx)
+    datagen_smoke2d(ctx)
+    datagen_smoke3d(ctx)
+    datagen_liquid_mov(ctx)
+    datagen_steps(ctx)
+    datagen_loop(ctx)
+    rates = datagen_timing(ctx)
+    # Every shape at which the setups and the scene runs gave a kernel
+    # wrapper a tensor must be one phase 2 held the kernels against their
+    # plain versions at.
+    shapes = ctx.shapes
+    unchecked = shapes - set(KERNEL_SHAPES[2]) - set(KERNEL_SHAPES[3])
+    if unchecked or not shapes:
+        raise AssertionError(f"the matched projection gave the kernels "
+                             f"{sorted(shapes)}; not among phase 2's shapes: "
+                             f"{sorted(unchecked)}")
+    print(f"phase 10 datagen shapes: ok  the matched projection's setups "
+          f"and scene runs gave the curl kernels "
+          f"{sorted(shapes)}, each among the shapes of phase 2's "
+          f"kernel-vs-plain check", flush=True)
+    return {"launches": ctx.launches, "rates": rates, "secs": ctx.secs}
+
+
 def timed(label: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its wall time printed under ``label``."""
     t0 = time.perf_counter()
@@ -1958,6 +2629,7 @@ def run(device, card: str) -> list[dict]:
         timed("phase 8", phase_sweep_on_device, device, serving, timing,
               card, root)
         timed("phase 9", phase_knobs3d, device)
+        datagen = timed("phase 10", phase_datagen, device, root, card)
         timed("profiles", profiles, device, serving, timing, train_timing,
               card)
     leaked = sorted(m for m in sys.modules
@@ -1978,6 +2650,14 @@ def run(device, card: str) -> list[dict]:
         by_path["train_mov"] = sum(r["launches"][name] for r in
                                    mov["ae_runs"] + mov["nn_runs"])
         by_path["serving_mov"] = sum(s[name] for s in mov["serving"])
+        # Phase 10: the datagen's scene functions, the training run on the
+        # set they wrote and the density rendering through its generator.
+        for tag, counts in datagen["launches"].items():
+            by_path[f"datagen_{tag}"] = counts[name]
+        matched = "datagen_2d_matched" if nd == 2 else "datagen_3d_matched"
+        if name.startswith("curl") and by_path[matched] == 0:
+            raise AssertionError(f"{name} never launched on the matched "
+                                 f"datagen path: {by_path}")
         if by_path["serving_liquid"] or by_path["train_liquid"]:
             raise AssertionError(f"{name} launched on config #3's path, "
                                  f"which has no curl: {by_path}")

@@ -566,3 +566,86 @@ def test_sweep_on_device_pins_its_host_buffer(cuda_device):
     seg = sweep_on_device(apply_fn, m, raw, batch_size=4,
                           max_out_bytes=1, device=cuda_device)
     np.testing.assert_allclose(seg, got, atol=1e-5, rtol=1e-5)
+
+
+# --- the datagen on the card -------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndim,shape", [(2, (3, 32, 24, 2)),
+                                        (3, (2, 8, 12, 12, 3))])
+def test_matched_projection_kernels_match_plain(cuda_device, ndim, shape,
+                                                monkeypatch):
+    # The projection's curl and its transpose through the kernels, against
+    # the same projection through the plain ops.fd functions, on the card.
+    from deepfluids_tpu_torch.datagen import projection
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    v = torch.from_numpy(np.random.default_rng(20).standard_normal(
+        shape).astype(np.float32)).to(cuda_device)
+    project = (projection.project_curl2d if ndim == 2
+               else projection.project_curl3d)
+    fwd, bwd = f"curl{ndim}d_fused", f"curl{ndim}d_bwd"
+    project(v, cycles=1)                  # builds and caches the hierarchy
+    setup = projection._mg_setup("curl_ls" if ndim == 2 else "curl3_ls",
+                                 shape[1:-1] if ndim == 2 else shape[1:],
+                                 torch.float32, v.device)
+    cuda_fd.reset_launch_counts()
+    out = project(v, cycles=4)
+    # a V(2,2)-cycle: 4 smoothings and a residual on every level but the
+    # coarsest, each one application of the fine operator
+    want = 4 * 5 * (len(setup["shapes"]) - 1) + 1
+    assert cuda_fd.launch_counts[fwd] == cuda_fd.launch_counts[bwd] == want
+    assert setup is projection._mg_setup(
+        "curl_ls" if ndim == 2 else "curl3_ls",
+        shape[1:-1] if ndim == 2 else shape[1:], torch.float32, "cuda")
+    # float64 takes the plain functions on the card too (a dtype rule)
+    cuda_fd.reset_launch_counts()
+    out64 = project(v.double(), cycles=4)
+    assert out64.dtype == torch.float64
+    assert not any(cuda_fd.launch_counts.values())
+    assert float((out.double() - out64).norm() / out64.norm()) < 1e-4
+    # and f32 does once the curl hooks are patched to their plain versions
+    monkeypatch.setattr(projection, "_curl", lambda p: fd.curl2d(p[..., None]))
+    monkeypatch.setattr(projection, "_curl_adj", projection._curl_adj_plain)
+    monkeypatch.setattr(projection, "_curl3", fd.curl3d)
+    monkeypatch.setattr(projection, "_curl3_adj", projection._curl3_adj_plain)
+    plain = project(v, cycles=4)
+    assert not any(cuda_fd.launch_counts.values())
+    rel = float((out - plain).norm() / plain.norm())
+    assert rel <= 1e-6, rel
+
+
+@pytest.mark.cuda
+def test_scene_function_defaults_to_the_card(cuda_device, tmp_path):
+    from deepfluids_tpu_torch.data import load_manifest
+    from deepfluids_tpu_torch.datagen import scenes
+
+    cuda_fd.reset_launch_counts()
+    out = scenes.smoke_pos21_size5(str(tmp_path), num_pos=2, num_size=1,
+                                   num_frames=3, height=32, width=24,
+                                   projection="matched", name="tiny")
+    # the matched projection ran through the kernels: it was on the card
+    assert cuda_fd.launch_counts["curl2d_fused"] > 0
+    assert cuda_fd.launch_counts["curl2d_bwd"] > 0
+    assert load_manifest(out).param_counts == [2, 1]
+    ref = scenes.smoke_pos21_size5(str(tmp_path), num_pos=2, num_size=1,
+                                   num_frames=3, height=32, width=24,
+                                   projection="matched", name="ref",
+                                   device="cpu")
+    for name in sorted(os.listdir(os.path.join(out, "v"))):
+        a = np.load(os.path.join(out, "v", name))["x"]
+        b = np.load(os.path.join(ref, "v", name))["x"]
+        assert check_fields(a[None], b[None])["passed"], name
+
+
+def test_datagen_cli_raises_without_a_card(tmp_path):
+    # Runs where there is no card: the CLI names the card and writes
+    # nothing.  (Where there is one, the CLI's default is exercised above.)
+    from deepfluids_tpu_torch.datagen import __main__ as cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--scene", "liquid_pos10_size4", "--out", str(tmp_path),
+                  "--num-a", "1", "--num-b", "1", "--num-frames", "2"])
+    assert not os.listdir(tmp_path)

@@ -57,7 +57,65 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split()[-1]) >= 20   # every module was imported
+    assert int(out.stdout.split()[-1]) >= 30   # every module was imported
+
+
+# The datagen with jax refused: a tiny matched 2D set and a liquid step
+# through the CLI and the scene functions, then a density rendering.
+_DATAGEN = _REFUSE + """
+import sys, tempfile
+import numpy as np
+from deepfluids_tpu_torch.data import load_manifest
+from deepfluids_tpu_torch.datagen import __main__ as cli, scenes
+from deepfluids_tpu_torch.infer import advect_density
+
+root = tempfile.mkdtemp()
+cli.main(["--scene", "smoke_pos21_size5", "--out", root, "--num-a", "1",
+          "--num-b", "1", "--num-frames", "2", "--name", "s", "--projection",
+          "matched", "--device", "cpu"])
+out = scenes.liquid_pos10_size4(root, num_pos=1, num_size=1, num_frames=2,
+                                height=16, width=16, name="l", device="cpu")
+m = load_manifest(root + "/s")
+print(m.num_frames, load_manifest(out).data_type,
+      sorted(sys.modules).count("jax"))
+"""
+
+
+def test_datagen_runs_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _DATAGEN], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-3:] == ["2", "levelset", "0"]
+
+
+# Every public name of the JAX datagen modules and of infer.advect has its
+# counterpart in the port; what is left out, with its reason, is listed in
+# ROADMAP.md ("Not to port").
+_NOT_PORTED = {"scenes": {"_fetch_scene", "_FETCH_BYTES"}}
+
+
+@pytest.mark.parametrize("module", [
+    "datagen.grids", "datagen.smoke2d", "datagen.smoke3d",
+    "datagen.liquid2d", "datagen.projection", "datagen.scenes",
+    "datagen.__main__", "datagen", "infer.advect"])
+def test_datagen_names_have_counterparts(module):
+    import importlib
+    import inspect
+
+    theirs = importlib.import_module("deepfluids_tpu." + module)
+    ours = importlib.import_module("deepfluids_tpu_torch." + module)
+    names = [n for n, v in vars(theirs).items()
+             if (inspect.isfunction(v) or inspect.isclass(v)
+                 or n in ("SCENES", "_OPERATORS", "__all__"))
+             and getattr(v, "__module__", theirs.__name__) == theirs.__name__]
+    assert names
+    left_out = _NOT_PORTED.get(module.split(".")[-1], set())
+    missing = [n for n in names if not hasattr(ours, n) and n not in left_out]
+    assert not missing, missing
+    if hasattr(theirs, "__all__"):
+        assert set(theirs.__all__) <= set(ours.__all__)
 
 
 # The augmentation with jax refused: the signs, a mask and a flip.
