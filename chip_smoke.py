@@ -85,7 +85,27 @@ exits non-zero:
      the card just wrote (loss falling) and ``render_density_sweep`` of a
      scene through the trained generator against the set's d/ frames; and
      the solvers' frames/s, idle shares and launches a frame (printed
-     only).
+     only);
+ 11. the tools (``deepfluids_tpu_torch/tools``) and the trainer's
+     operational flags through their normal entry points: each
+     ``bench_suite`` surface once at its full shapes (``e2e_sweep2d`` cut in
+     frames, the cut printed), the launches of a timed call exact;
+     ``supervise`` around a flagship 2D ``main`` run in child processes
+     (bf16, batch 8, device cache) killed by ``--die_at_step``: exit 0 after
+     exactly one restart, the final step reached, the loss within the
+     spread of an uninterrupted run's; ``--profile_steps``: a Chrome trace
+     with rows of the four 2D kernels (a window without them is run
+     again), and ``--use_tensorboard`` on the same run (an event file
+     where tensorboard is installed); ``--debug_nans`` on a checkpoint poisoned with a NaN raises
+     and names the step, the same run without the flag does not;
+     ``eval_run`` on phase 6's 2D run and phase 7's integrator,
+     ``rollout_eval`` on phase 7's rollout (its ``l2_median`` is the one
+     ``main`` returned), ``latent_predictability`` on phase 7's codes;
+     ``weights_io.export_run`` read back bit for bit (``exact`` and
+     ``by_shape``); ``regen_all`` at a cut grid (a datagen child process),
+     ``--verify_only``, and a removed file refused; ``solver_consistency``
+     2D (float64 CG on the card) and matched at a cut; ``make_goldens
+     --check``.  Every shape these give a kernel is one of phase 2's.
 
 Then it prints the kernels as one JSON line, the card's name and power
 limit as nvidia-smi gives them, and, last, the ``{"ok": true, ...}`` line.
@@ -122,12 +142,16 @@ TOL_PARITY = 1e-3     # the repo's normalized-L2 parity gate
 # for the backward kernels' bricks: rows whose bytes are no multiple of 16
 # (W = 37, 113, 5, 11), ragged last bricks along z and y, D below one brick
 # of planes (3, 4), and W wider than a brick's plane (1100: column tiles).
+# The tools of phase 11 add 2 (a cut ensemble or fleet), 5 (rollout_decode),
+# 128 (e2e_sweep2d, an integrator's evaluation) in 2D, 4 (train3d) in 3D,
+# and the goldens' (2, 32, 24), (4, 32, 24) and (1, 8, 12, 16).
 KERNEL_SHAPES = {
-    2: [(1, 128, 96), (4, 128, 96), (8, 128, 96), (16, 128, 96),
-        (32, 128, 96), (64, 128, 96), (512, 128, 96),
-        (3, 8, 8), (2, 16, 12), (4, 2, 5)],
-    3: [(1, 32, 64, 112), (8, 32, 64, 112), (32, 32, 64, 112),
-        (48, 32, 64, 112),
+    2: [(1, 128, 96), (2, 128, 96), (4, 128, 96), (5, 128, 96),
+        (8, 128, 96), (16, 128, 96), (32, 128, 96), (64, 128, 96),
+        (128, 128, 96), (512, 128, 96),
+        (3, 8, 8), (2, 16, 12), (4, 2, 5), (2, 32, 24), (4, 32, 24)],
+    3: [(1, 32, 64, 112), (4, 32, 64, 112), (8, 32, 64, 112),
+        (32, 32, 64, 112), (48, 32, 64, 112), (1, 8, 12, 16),
         (2, 5, 6, 7), (1, 3, 3, 3), (1, 2, 6, 7), (1, 5, 2, 7),
         (1, 5, 6, 2), (2, 9, 13, 37), (1, 33, 65, 113), (3, 4, 7, 5),
         (2, 3, 9, 11), (1, 4, 5, 1100)],
@@ -1344,6 +1368,7 @@ def phase_train_mov(device, root: str, path: LatentPath) -> dict:
           f"recomputed codes max abs err {z_err:.2e}, first batch vs plain "
           f"ops L2 {l2:.2e}", flush=True)
     return {"run": ae_run, "nn_run": nn_run, "walk": walk,
+            "data_dir": data_dir, "rollout": result,
             "ae_runs": ae_runs, "nn_runs": nn_runs,
             "serving": [enc_launches, roll_launches],
             "ae_steps_per_sec": ae_rate, "encode_s": enc_s,
@@ -2574,6 +2599,538 @@ def phase_datagen(device, root: str, card: str) -> dict:
     return {"launches": ctx.launches, "rates": rates, "secs": ctx.secs}
 
 
+# --- phase 11: the tools and the trainer's operational flags ---------------
+
+# (timed calls, warm-up calls) of each bench_suite surface here: the
+# surfaces' own defaults, three sweeps for e2e_sweep2d.
+BENCH_RUNS = {"infer2d": (5, 2), "infer3d": (3, 2), "train2d": (10, 2),
+              "train3d": (5, 1), "rollout": (5, 2), "rollout_decode": (3, 2),
+              "e2e_sweep2d": (3, 1)}
+# e2e_sweep2d's cut for the time limit: frames a scene of the 200.
+E2E_FRAMES = 40
+TOOLS_CUTS = {
+    "e2e_sweep2d": f"21x5x{E2E_FRAMES} of 21x5x200 fields",
+    "supervise": "120 steps (killed at 70, checkpoints every 50)",
+    "regen_all": "2x1 scenes x 8 frames of 21x5x200",
+    "solver_consistency 2d": "20 of 100 frames, ensemble 2 of 5",
+    "solver_consistency matched": "10 of 100 frames, ensemble 2 of 5",
+}
+SUP_STEPS, SUP_DIE, SUP_SAVE = 120, 70, 50
+TOL_SUPERVISED_LOSS = 0.25   # relative, killed run vs uninterrupted, bf16
+PROFILE_STEPS = (5, 8)
+KERNELS_2D = ("curl2d_kernel", "jacobian2d_kernel", "curl2d_bwd_kernel",
+              "jacobian2d_bwd_kernel")
+
+
+def bench_call_launches(name: str) -> dict:
+    """The kernel launches of one timed call of a bench_suite surface at
+    the shapes phase 11 runs it."""
+    return {
+        "infer2d": {"curl2d_fused": 16},
+        "infer3d": {"curl3d_fused": 4},
+        "train2d": {k: 16 * n for k, n in PATH_2D.step_launches.items()},
+        "train3d": {k: 4 * n for k, n in PATH_3D.step_launches.items()},
+        "rollout": {},
+        "rollout_decode": {"curl2d_fused": 200},
+        "e2e_sweep2d": {"curl2d_fused": -(-21 * 5 * E2E_FRAMES // 128)},
+    }[name]
+
+
+@contextlib.contextmanager
+def recording_kernel_shapes(shapes: set):
+    """Adds to ``shapes`` the shape (batch + spatial) of every kernel
+    launch."""
+    from deepfluids_tpu_torch.ops import cuda_fd
+
+    launch = cuda_fd._launch
+
+    def recording(name, entry, ins, out_channels):
+        shapes.add(tuple(ins[0].shape[:-1]))
+        return launch(name, entry, ins, out_channels)
+
+    cuda_fd._launch = recording
+    try:
+        yield
+    finally:
+        cuda_fd._launch = launch
+
+
+def _counted(ctx, tag: str, fn, want: dict | None):
+    """``fn()`` from launch counts at 0, its launches kept under ``tag``;
+    they must be ``want`` (a dict of the kernels launched; None: any)."""
+    import torch
+
+    from deepfluids_tpu_torch.ops import cuda_fd
+
+    cuda_fd.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_kernel_shapes(ctx.shapes):
+        out = fn()
+    torch.cuda.synchronize()
+    ctx.secs[tag] = time.perf_counter() - t0
+    ctx.launches[tag] = dict(cuda_fd.launch_counts)
+    if want is not None and ctx.launches[tag] != expected_launches(want):
+        raise AssertionError(f"tools {tag} launched {ctx.launches[tag]}, "
+                             f"want {want}")
+    return out
+
+
+def tools_bench(ctx) -> None:
+    """Each bench_suite surface once at its full shapes."""
+    from deepfluids_tpu_torch.tools import bench_suite
+
+    for name, (iters, warmup) in BENCH_RUNS.items():
+        call = bench_call_launches(name)
+        kw = {"num_frames": E2E_FRAMES} if name == "e2e_sweep2d" else {}
+        # The sweep warms up with one batch outside its timed region; the
+        # others make warm-up calls, the timed calls and one call under the
+        # flop counter.
+        calls = iters if name == "e2e_sweep2d" else warmup + iters + 1
+        total = {k: n * calls + (warmup if name == "e2e_sweep2d" else 0)
+                 for k, n in call.items()}
+        rec = _counted(ctx, f"bench_{name}", lambda: bench_suite.run(
+            name, ctx.device, ctx.out, iters=iters, warmup=warmup, **kw),
+            total)
+        if rec["launches"] != call or rec["backend"] != "cuda":
+            raise AssertionError(f"bench {name}: a timed call launched "
+                                 f"{rec['launches']}, want {call}: {rec}")
+        secs = rec["seconds_per_call"]
+        if len(secs) != iters or not min(secs) > 0:
+            raise AssertionError(f"bench {name}: seconds {secs}")
+        ctx.bench[name] = rec
+        cut = f" (cut: {TOOLS_CUTS[name]})" if name in TOOLS_CUTS else ""
+        print(f"phase 11 bench_suite {name} [{ctx.card}]: ok  "
+              f"{rec['value']} {rec['metric']} ({rec['value_min']}.."
+              f"{rec['value_max']} over {iters} timed calls of "
+              f"{min(secs) * 1e3:.2f}..{max(secs) * 1e3:.2f} ms); "
+              f"{rec['detail']}{cut}; launches a timed call {call or 'none'}"
+              f", exact; conv+matmul "
+              f"{rec.get('tflops_per_sec', 'not counted')} TFLOP/s",
+              flush=True)
+
+
+def _flagship_2d_flags(ctx, tag: str, max_step: int) -> list[str]:
+    """``main`` flags of a flagship 2D run (bf16, batch 8, device cache) on
+    phase 6's synthetic set."""
+    return ["--is_train", "True", "--arch", "de", "--data_dir",
+            ctx.train["2d"]["data_dir"], "--dataset", PATH_2D.dataset,
+            "--log_dir", ctx.logs, "--tag", tag, "--batch_size", "8",
+            "--compute_dtype", "bfloat16", "--device_data_cache", "true",
+            "--num_worker", "4", "--filters", str(FLAGSHIP["filters"]),
+            "--num_conv", str(FLAGSHIP["num_conv"]), "--max_step",
+            str(max_step)]
+
+
+def _step_launches(steps: int, dumps: int) -> dict:
+    return {k: steps * n + dumps * PATH_2D.forward_launches.get(k, 0)
+            for k, n in PATH_2D.step_launches.items()}
+
+
+def tools_supervise(ctx) -> None:
+    """``supervise`` around a flagship 2D run killed in the middle, against
+    the same run uninterrupted in this process."""
+    import io
+
+    from deepfluids_tpu_torch.tools import supervise
+
+    sched = ["--log_step", "10", "--save_step", str(SUP_SAVE), "--test_step",
+             str(SUP_SAVE)]
+    killed = _flagship_2d_flags(ctx, "chip_sup", SUP_STEPS) + sched + [
+        "--die_at_step", str(SUP_DIE)]
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        rc = supervise.supervise(killed, max_restarts=2, backoff=0.5)
+    sup_s = time.perf_counter() - t0
+    said = said.getvalue()
+    run = os.path.join(ctx.logs, f"{PATH_2D.dataset}_chip_sup")
+    rows = _metrics(run)
+    # the fault strikes before the step's own checkpoint
+    resumed = (SUP_DIE - 1) // SUP_SAVE * SUP_SAVE
+    want_steps = (list(range(10, SUP_DIE + 1, 10))
+                  + list(range(resumed + 10, SUP_STEPS + 1, 10)))
+    ckpts = sorted(int(n) for n in os.listdir(os.path.join(run,
+                                                           "checkpoint")))
+    if not (rc == 0 and "relaunch #1" in said and "relaunch #2" not in said
+            and "child completed after 1 restart(s)" in said
+            and os.path.exists(os.path.join(run, ".fault_injected"))
+            and [r["step"] for r in rows] == want_steps
+            and ckpts[-1] == SUP_STEPS):
+        raise AssertionError(f"supervise: rc {rc}, said {said!r}, metrics "
+                             f"steps {[r['step'] for r in rows]}, "
+                             f"checkpoints {ckpts}")
+    # The same run uninterrupted, here: its launches are exact (the
+    # children's are counted in their own processes).
+    ref = _flagship_2d_flags(ctx, "chip_sup_ref", SUP_STEPS) + sched
+    _, ref_s, _ = _counted(
+        ctx, "supervise_ref", lambda: _drive(
+            ctx.device, ref, expected_launches(_step_launches(
+                SUP_STEPS, SUP_STEPS // SUP_SAVE)), "the uninterrupted run"),
+        _step_launches(SUP_STEPS, SUP_STEPS // SUP_SAVE))
+    ctx.ref_run = os.path.join(ctx.logs, f"{PATH_2D.dataset}_chip_sup_ref")
+    ref_rows = _metrics(ctx.ref_run)
+    loss, ref_loss = rows[-1]["loss"], ref_rows[-1]["loss"]
+    if not (np.isfinite(loss) and loss < rows[0]["loss"]
+            and abs(loss - ref_loss) <= TOL_SUPERVISED_LOSS * ref_loss):
+        raise AssertionError(f"supervised loss {loss} vs uninterrupted "
+                             f"{ref_loss} (first {rows[0]['loss']})")
+    ctx.supervise = {"supervised_s": sup_s, "uninterrupted_s": ref_s}
+    print(f"phase 11 supervise [{ctx.card}]: ok  flagship 2D main() bf16 "
+          f"batch 8 --device_data_cache in child processes, "
+          f"--die_at_step {SUP_DIE} of {SUP_STEPS} (cut: "
+          f"{TOOLS_CUTS['supervise']}): exit 0 after exactly one restart, "
+          f".fault_injected present, resumed from step {resumed}, metrics "
+          f"steps {want_steps[0]}..{SUP_DIE} then {resumed + 10}.."
+          f"{SUP_STEPS}, checkpoints {ckpts}; loss at step {SUP_STEPS} "
+          f"{loss:.4f} vs {ref_loss:.4f} uninterrupted in this process "
+          f"(relative tol {TOL_SUPERVISED_LOSS}: bf16 on the card is not "
+          f"bit-repeatable); {sup_s:.1f} s supervised (two process starts) "
+          f"vs {ref_s:.1f} s uninterrupted", flush=True)
+
+
+def tools_profile(ctx) -> None:
+    """``--profile_steps`` on a short flagship run: the Chrome trace holds
+    rows of the four 2D kernels.  A window that came back without them is
+    run again (the profiler has lost records on this machine before)."""
+    lo, hi = PROFILE_STEPS
+    counts = {}
+    for attempt in range(3):
+        tag = f"chip_prof{attempt}"
+        flags = _flagship_2d_flags(ctx, tag, 12) + [
+            "--log_step", "4", "--save_step", "1000", "--test_step", "1000",
+            "--profile_steps", f"{lo},{hi}", "--use_tensorboard", "true"]
+        _counted(ctx, "profile_steps", lambda: _drive(
+            ctx.device, flags, expected_launches(_step_launches(12, 0)),
+            "the profiled run"), _step_launches(12, 0))
+        trace = os.path.join(ctx.logs, f"{PATH_2D.dataset}_{tag}", "profile",
+                             f"steps_{lo}_{hi}.trace.json")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events
+                 if e.get("cat") == "kernel"]
+        # "void curl2d_kernel<float>(...)": the name after a space or "::"
+        counts = {k: sum(bool(re.search(rf"(^|[ :]){k}\b", n))
+                         for n in names) for k in KERNELS_2D}
+        if all(counts.values()):
+            break
+        print(f"phase 11 profile_steps: window {attempt} came back with "
+              f"{len(names)} kernel rows, {counts}; running it again",
+              flush=True)
+    else:
+        raise AssertionError(f"--profile_steps: no row of the hand-written "
+                             f"kernels in three windows: {counts}")
+    # --use_tensorboard on the same run: an event file beside
+    # metrics.jsonl where the writer's dependency is installed, else the
+    # run trained on with a warning (it reached step 12 either way).
+    import importlib.util
+
+    events = glob.glob(os.path.join(os.path.dirname(os.path.dirname(trace)),
+                                    "events.out.tfevents.*"))
+    has_tb = importlib.util.find_spec("tensorboard") is not None
+    if has_tb != bool(events):
+        raise AssertionError(f"--use_tensorboard: tensorboard installed "
+                             f"{has_tb}, event files {events}")
+    steps = hi - lo + 1
+    print(f"phase 11 --use_tensorboard [{ctx.card}]: ok  tensorboard "
+          f"{'installed' if has_tb else 'not installed'}: "
+          f"{len(events)} event file"
+          f"{f' of {os.path.getsize(events[0])} bytes' if events else 's'} "
+          f"beside metrics.jsonl", flush=True)
+    print(f"phase 11 --profile_steps {lo},{hi} [{ctx.card}]: ok  "
+          f"{os.path.basename(trace)} ({os.path.getsize(trace) >> 10} KiB) "
+          f"parses, {len(names)} kernel rows, of the hand-written kernels "
+          f"{counts} ({steps} steps x 1/2/1/1 = "
+          f"{[steps * n for n in (1, 2, 1, 1)]} expected), window "
+          f"{attempt}", flush=True)
+
+
+def tools_debug_nans(ctx) -> None:
+    """``--debug_nans`` on a run whose newest checkpoint was poisoned with
+    a NaN raises and names the step; the same run without the flag trains
+    on."""
+    import shutil
+
+    import torch
+
+    outcomes = {}
+    for flag in ("true", "false"):
+        run = os.path.join(ctx.logs, f"chip_nan_{flag}")
+        shutil.copytree(ctx.ref_run, run)
+        ckpt = os.path.join(run, "checkpoint", str(SUP_STEPS), "state.pt")
+        state = torch.load(ckpt, map_location="cpu", weights_only=True)
+        key = next(iter(state["params"]))
+        state["params"][key].view(-1)[0] = float("nan")
+        torch.save(state, ckpt)
+        flags = _flagship_2d_flags(ctx, "unused", SUP_STEPS + 2) + [
+            "--load_path", run, "--debug_nans", flag, "--log_step", "1",
+            "--save_step", "1000", "--test_step", "1000"]
+        try:
+            result = _counted(ctx, f"debug_nans_{flag}", lambda: _drive(
+                ctx.device, flags, expected_launches(_step_launches(
+                    1 if flag == "true" else 2, 0)), "the poisoned run"),
+                None)[0]
+            outcomes[flag] = f"trained on, loss {result['loss']}"
+        except FloatingPointError as e:
+            outcomes[flag] = f"raised: {e}"
+    if not (outcomes["true"].startswith("raised")
+            and f"step {SUP_STEPS + 1}" in outcomes["true"]
+            and outcomes["false"] == "trained on, loss nan"):
+        raise AssertionError(f"--debug_nans: {outcomes}")
+    print(f"phase 11 --debug_nans [{ctx.card}]: ok  a NaN written into "
+          f"{key} of the step-{SUP_STEPS} checkpoint: with the flag "
+          f"{outcomes['true']}; without it {outcomes['false']}", flush=True)
+
+
+def tools_eval(ctx) -> None:
+    """``eval_run`` on phase 6's 2D run and phase 7's integrator,
+    ``rollout_eval`` on phase 7's rollout, ``latent_predictability`` on its
+    codes."""
+    from deepfluids_tpu_torch.tools import (
+        eval_run,
+        latent_predictability,
+        rollout_eval,
+    )
+
+    common = ["--out", ctx.out]
+    # 64 samples at --test_batch_size 32: the curl once a generated batch.
+    de = _counted(ctx, "eval_run_de", lambda: eval_run.main(
+        [ctx.train["2d"]["run"], "64", "chip_smoke"] + common),
+        {"curl2d_fused": 2})
+    mov, path = ctx.mov, PATH_MOV
+    # The integrator: 8 sampled frames of every scene decoded in one batch
+    # for the predicted and for the true codes, then scene 0's rollout and
+    # its AE floor in batches of 32.
+    nn = _counted(ctx, "eval_run_nn", lambda: eval_run.main(
+        [mov["nn_run"], "128", "chip_smoke", "--ae_load_path", mov["run"]]
+        + common), {"curl2d_fused": 2 + 2 * -(-path.frames // 32)})
+    roll = _counted(ctx, "rollout_eval", lambda: rollout_eval.main(
+        [mov["nn_run"], "chip_smoke"] + common), {})
+    ds = os.path.join(mov["data_dir"], path.dataset)
+    pred = _counted(ctx, "latent_predictability",
+                    lambda: latent_predictability.main(
+                        [ds, str(path.z_num), "4", "", "chip_smoke"]
+                        + common), {})
+    want = mov["rollout"]["rollout_field_l2"]
+    if not (de["metric"] == "eval_de" and np.isfinite(de["l2_mean"])
+            and de["step"] == PATH_2D.resume_steps
+            and de["num_samples"] == 64
+            and nn["metric"] == "eval_nn" and nn["step"] == path.nn_resume
+            and np.isfinite(nn["z_mae"]) and np.isfinite(nn["field_rmse"])
+            and nn["rollout_steps"] == path.frames
+            and "rollout_field_l2" in nn and "ae_floor_field_l2" in nn):
+        raise AssertionError(f"eval_run: de {de}, nn {nn}")
+    # rollout_eval scores the file main wrote with main's own scorer.
+    got = {k: roll[k] for k in want}
+    if got != want or roll["metric"] != "rollout_field_l2":
+        raise AssertionError(f"rollout_eval {got} != main's {want}")
+    if not (pred["holdout_scenes"] == 4
+            and len(pred["r2_holdout_per_scene"]) == 4
+            and np.isfinite(pred["r2_holdout_median"])
+            and pred["r2_train_median"] <= 1.0):
+        raise AssertionError(f"latent_predictability: {pred}")
+    print(f"phase 11 eval tools [{ctx.card}]: ok  eval_run 2D run (step "
+          f"{de['step']}, 64 samples): l2_mean {de['l2_mean']:.4f} rmse "
+          f"{de['rmse']:.4f}, curl2d_fused 2 = 2 batches; eval_run "
+          f"integrator (step {nn['step']}, {nn['num_samples']} scenes, "
+          f"--ae_load_path): z_mae {nn['z_mae']:.4f}, field_rmse "
+          f"{nn['field_rmse']:.4f}, rollout_field_l2 median "
+          f"{nn['rollout_field_l2']['l2_median']} (AE floor "
+          f"{nn['ae_floor_field_l2']['l2_median']}), curl2d_fused "
+          f"{ctx.launches['eval_run_nn']['curl2d_fused']}; rollout_eval "
+          f"l2_median {roll['l2_median']} = main()'s "
+          f"{want['l2_median']} (scene {roll['scene']}, "
+          f"{roll['rollout_steps']} frames); latent_predictability "
+          f"(holdout 4 of {PATH_MOV.scenes}): R2 train "
+          f"{pred['r2_train_median']} holdout {pred['r2_holdout_median']}",
+          flush=True)
+
+
+def tools_weights_io(ctx) -> None:
+    """``export_run`` of phase 6's 2D run, read back bit for bit."""
+    from deepfluids_tpu_torch.config import load_config
+    from deepfluids_tpu_torch.tools import weights_io
+    from deepfluids_tpu_torch.train.trainer import Trainer
+
+    run = ctx.train["2d"]["run"]
+    path = _counted(ctx, "weights_io", lambda: weights_io.export_run(
+        run, os.path.join(ctx.root, "export.npz")), {})
+    t = Trainer(load_config(run), run_dir=run, device=ctx.device,
+                save_cfg=False)
+    t.restore_checkpoint()
+    template = weights_io.model_template(t.model)
+    n = 0
+    for mode in ("exact", "by_shape"):
+        got = weights_io.flatten_params(weights_io.import_npz(
+            path, template, mode=mode))
+        if sorted(got) != sorted(template):
+            raise AssertionError(f"weights_io {mode}: keys differ")
+        for k, v in template.items():
+            if not np.array_equal(got[k], v):
+                raise AssertionError(f"weights_io {mode}: {k} differs")
+        n = len(got)
+    # and into a freshly initialised model, which then generates the same
+    fresh = Trainer(load_config(run), run_dir=run, device=ctx.device,
+                    save_cfg=False)
+    weights_io.import_into_model(path, fresh.model)
+    import torch
+
+    for k, v in t.model.state_dict().items():
+        if not torch.equal(fresh.model.state_dict()[k], v):
+            raise AssertionError(f"weights_io: {k} differs after the load")
+    print(f"phase 11 weights_io [{ctx.card}]: ok  export_run of the step-"
+          f"{t.step} checkpoint -> {os.path.getsize(path) >> 10} KiB, "
+          f"import_npz exact and by_shape: {n} tensors bit for bit, and "
+          f"loaded into a freshly initialised model its state_dict is the "
+          f"checkpoint's", flush=True)
+
+
+def tools_regen_all(ctx) -> None:
+    """``regen_all`` at a cut grid: generate (a datagen child process on
+    the card), verify, ``--verify_only``, and a removed file refused."""
+    from deepfluids_tpu_torch.tools import regen_all
+
+    name = "smoke_pos21_size5_m"
+    data = os.path.join(ctx.root, "fleet")
+    argv = ["--only", name, "--num-a", "2", "--num-b", "1", "--num-frames",
+            "8", "--data_dir", data, "--log_dir", ctx.logs, "--out",
+            ctx.out]
+    t0 = time.perf_counter()
+    regen_all.main(argv)
+    gen_s = time.perf_counter() - t0
+    regen_all.main(argv + ["--verify_only"])
+    victim = os.path.join(data, name, "d", "1_0_7.npz")
+    os.remove(victim)
+    try:
+        regen_all.main(argv + ["--verify_only"])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    if not code or "d: 15 files, expected 16" not in str(code):
+        raise AssertionError(f"regen_all accepted a fleet with a file "
+                             f"removed: exit {code!r}")
+    with open(ctx.out) as f:
+        rows = [r for r in map(json.loads, f)
+                if r.get("metric") == "datagen_fleet"]
+    if not (len(rows) == 2 and rows[0]["files"] == {"v": 16, "d": 16}
+            and rows[0]["backend"] == "cuda" and rows[0]["cut"]
+            and "wall_s" in rows[0] and "wall_s" not in rows[1]):
+        raise AssertionError(f"regen_all records: {rows}")
+    print(f"phase 11 regen_all [{ctx.card}]: ok  --only {name} (cut: "
+          f"{TOOLS_CUTS['regen_all']}, matched): generated by a datagen "
+          f"child on the card and verified in {gen_s:.1f} s (the child "
+          f"{rows[0]['wall_s']} s), 16 + 16 files, sample |v| mean "
+          f"{rows[0]['sample_mean_abs']:.4f}; --verify_only passes; with "
+          f"{os.path.basename(victim)} removed it exits with "
+          f"{str(code)[:90]!r}", flush=True)
+
+
+def tools_solver_consistency(ctx) -> None:
+    """``solver_consistency`` 2D with the float64 CG on the card, and the
+    matched study, which launches the curl kernels."""
+    from deepfluids_tpu_torch.tools import solver_consistency
+
+    rec = _counted(ctx, "solver_consistency_2d",
+                   lambda: solver_consistency.main(
+                       ["2d", "--frames", "20", "--ensemble", "2", "--out",
+                        ctx.out]), {})
+    res = rec["div_residual_vs_unprojected"]
+    if not (rec["cg_compact_residual_rel"] < 1e-5
+            and res["jacobi_20"] > res["jacobi_50"] > res["jacobi_100"]
+            and rec["backend"] == "cuda"
+            and rec["resolution"] == [128, 96]):
+        raise AssertionError(f"solver_consistency 2d: {rec}")
+    # 10 frames x (8 V-cycles x 15 fine applications + 1) of the curl and
+    # of its transpose, the two scenes as the batch; the multigrid setup is
+    # phase 10's (cached), or built here with its 189 probes.
+    frames = 10
+    m = _counted(ctx, "solver_consistency_matched",
+                 lambda: solver_consistency.main(
+                     ["matched", "--frames", str(frames), "--ensemble", "2",
+                      "--out", ctx.out]), None)
+    got = ctx.launches["solver_consistency_matched"]
+    per_run = frames * (8 * 15 + 1)
+    fd_other = {k: v for k, v in got.items()
+                if k not in ("curl2d_fused", "curl2d_bwd") and v}
+    if (got["curl2d_fused"] != got["curl2d_bwd"] or fd_other
+            or got["curl2d_fused"] not in (per_run, per_run + 189)
+            or not np.isfinite(m["ke_stat_rel_matched_vs_cg"])):
+        raise AssertionError(f"solver_consistency matched: launches {got}, "
+                             f"want {per_run} (+189 with the setup); {m}")
+    print(f"phase 11 solver_consistency [{ctx.card}]: ok  2d at 128x96 (cut:"
+          f" {TOOLS_CUTS['solver_consistency 2d']}) in {rec['secs']} s: "
+          f"float64 CG compact residual {rec['cg_compact_residual_rel']:.2e}"
+          f", divergence left vs unprojected {res}, velocity distance to "
+          f"the converged field {rec['vel_rel_l2_to_converged']}, KE gap "
+          f"jacobi vs cg {rec['ke_stat_rel_jacobi_vs_cg']} (chaos control "
+          f"{rec['ke_stat_rel_chaos_control']}), no FD launch; matched "
+          f"(cut: {TOOLS_CUTS['solver_consistency matched']}) in "
+          f"{m['secs']} s: KE gap matched vs cg "
+          f"{m['ke_stat_rel_matched_vs_cg']}, jacobi vs cg "
+          f"{m['ke_stat_rel_jacobi_vs_cg']}; curl2d_fused = curl2d_bwd = "
+          f"{got['curl2d_fused']} launches", flush=True)
+
+
+def tools_make_goldens(ctx) -> None:
+    """``make_goldens --check`` on the card, TF32 off."""
+    from deepfluids_tpu_torch.tools import make_goldens
+
+    out = os.path.join(ctx.root, "goldens")
+    res = _counted(ctx, "make_goldens", lambda: make_goldens.main(
+        ["--out", out, "--check"]),
+        {"curl2d_fused": 2, "jacobian2d_fused": 1, "curl3d_fused": 1,
+         "jacobian3d_fused": 1})
+    worst = max(res["max_l2"].values())
+    if not worst < TOL_PARITY or len(os.listdir(out)) != 4:
+        raise AssertionError(f"make_goldens --check: {res}")
+    print(f"phase 11 make_goldens --check [{ctx.card}]: ok  fd2d, fd3d, "
+          f"smoke2d, generator2d computed on the card into "
+          f"{os.path.basename(out)}/ (never tests/golden), max [B] "
+          f"normalized L2 vs the reference's dumps {worst:.2e} (gate "
+          f"{TOL_PARITY})", flush=True)
+
+
+def phase_tools(device, root: str, card: str, train: dict,
+                mov: dict) -> dict:
+    """Phase 11: the tools and the trainer's operational flags on the card,
+    through their entry points.  Returns the kernel launches of each tool
+    path and the bench records."""
+    import types
+
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = True   # as a user's run finds them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = types.SimpleNamespace(
+        device=device, root=root, card=card, train=train, mov=mov,
+        logs=os.path.join(root, "tools_logs"),
+        out=os.path.join(root, "BENCHMARKS_torch.jsonl"), launches={},
+        secs={}, shapes=set(), bench={}, supervise={}, ref_run="")
+    for fn in (tools_bench, tools_supervise, tools_profile, tools_debug_nans,
+               tools_eval, tools_weights_io, tools_regen_all,
+               tools_solver_consistency, tools_make_goldens):
+        timed(f"phase 11 {fn.__name__}", fn, ctx)
+    unchecked = ctx.shapes - set(KERNEL_SHAPES[2]) - set(KERNEL_SHAPES[3])
+    if unchecked or not ctx.shapes:
+        raise AssertionError(f"the tools gave the kernels {sorted(ctx.shapes)}"
+                             f"; not among phase 2's shapes: "
+                             f"{sorted(unchecked)}")
+    with open(ctx.out) as f:
+        records = [json.loads(ln) for ln in f]
+    bad = [r for r in records if r.get("backend") != "cuda"
+           or r.get("power_limit_w") is None or not r.get("ts")]
+    if bad or os.path.exists(os.path.join(REPO, "BENCHMARKS_torch.jsonl")):
+        raise AssertionError(f"tool records: {len(bad)} without the card's "
+                             f"stamp, e.g. {bad[:1]}; or a record file was "
+                             f"left in the checkout")
+    print(f"phase 11 tools: ok  {len(records)} records in --out, each "
+          f"stamped cuda / {records[0]['device']} / "
+          f"{records[0]['power_limit_w']} W; every shape the tools gave a "
+          f"kernel ({sorted(ctx.shapes)}) is among phase 2's", flush=True)
+    return {"launches": ctx.launches, "bench": ctx.bench,
+            "supervise": ctx.supervise}
+
+
 def timed(label: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its wall time printed under ``label``."""
     t0 = time.perf_counter()
@@ -2630,6 +3187,8 @@ def run(device, card: str) -> list[dict]:
               card, root)
         timed("phase 9", phase_knobs3d, device)
         datagen = timed("phase 10", phase_datagen, device, root, card)
+        tools = timed("phase 11", phase_tools, device, root, card, train,
+                      mov)
         timed("profiles", profiles, device, serving, timing, train_timing,
               card)
     leaked = sorted(m for m in sys.modules
@@ -2654,6 +3213,14 @@ def run(device, card: str) -> list[dict]:
         # set they wrote and the density rendering through its generator.
         for tag, counts in datagen["launches"].items():
             by_path[f"datagen_{tag}"] = counts[name]
+        # Phase 11: each tool's launches in this process (the supervised
+        # children's and the fleet's datagen child's are their own).
+        for tag, counts in tools["launches"].items():
+            by_path[f"tools_{tag}"] = counts[name]
+        bench = "tools_bench_train2d" if nd == 2 else "tools_bench_train3d"
+        if by_path[bench] == 0:
+            raise AssertionError(f"{name} never launched on the bench_suite "
+                                 f"train surface: {by_path}")
         matched = "datagen_2d_matched" if nd == 2 else "datagen_3d_matched"
         if name.startswith("curl") and by_path[matched] == 0:
             raise AssertionError(f"{name} never launched on the matched "

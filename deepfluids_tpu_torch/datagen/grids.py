@@ -15,8 +15,29 @@ batched by ``vmap``.  Nothing here tracks gradients: the callers run under
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+
+# Whether the CG solves run in float64 whatever their input's dtype
+# (:func:`cg_in_float64`).
+_CG_FLOAT64 = False
+
+
+@contextlib.contextmanager
+def cg_in_float64():
+    """Inside, :func:`solve_pressure2d_cg` / :func:`solve_pressure3d_cg`
+    (and so the ``projection="cg"`` solvers) solve in float64 and return
+    the pressure in their input's dtype: the converged oracle of the
+    consistency study, what the JAX functions do under
+    ``jax_enable_x64``."""
+    global _CG_FLOAT64
+    saved, _CG_FLOAT64 = _CG_FLOAT64, True
+    try:
+        yield
+    finally:
+        _CG_FLOAT64 = saved
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -178,6 +199,9 @@ def _solve_pressure_cg(div: torch.Tensor, nd: int, tol: float,
     """
     lap = laplacian2d if nd == 2 else laplacian3d
     dims = tuple(range(-nd, 0))
+    out_dtype = div.dtype
+    if _CG_FLOAT64:
+        div = div.double()
 
     def mean(q):
         return q.mean(dim=dims, keepdim=True)
@@ -206,7 +230,7 @@ def _solve_pressure_cg(div: torch.Tensor, nd: int, tol: float,
         p = torch.where(live, proj(r_new + (rs_new / rs) * p), p)
         r = torch.where(live, r_new, r)
         rs = torch.where(live, rs_new, rs)
-    return x - mean(x)
+    return (x - mean(x)).to(out_dtype)
 
 
 def solve_pressure2d_cg(div: torch.Tensor, tol: float = 1e-6,
@@ -222,7 +246,8 @@ def solve_pressure2d_cg(div: torch.Tensor, tol: float = 1e-6,
 
     The solve runs in the dtype of ``div``: f32 loses conjugacy over
     O(1000) iterations, so an f32 call should keep ``tol`` modest (~1e-5);
-    a float64 ``div`` gives the converged oracle.
+    a float64 ``div`` gives the converged oracle, and so does an f32 one
+    inside :func:`cg_in_float64`.
     """
     return _solve_pressure_cg(div, 2, tol, maxiter)
 

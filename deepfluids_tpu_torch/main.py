@@ -34,7 +34,8 @@ A test invocation rebuilds the run's model from its ``params.json``
 (the AE of an "nn" rollout from ``--ae_load_path``'s) and loads
 ``<run>/weights.npz``, which training writes at every checkpoint.  All of
 it runs on the current CUDA device, and raises when there is none, unless
-``device`` is given (the tests pass ``device="cpu"``).
+``--device cpu`` (``device="cpu"`` to :func:`main`) is given, as the tests
+do and as a supervisor's child on a machine without a card must.
 """
 
 from __future__ import annotations
@@ -167,5 +168,30 @@ def _rollout(trainer: Trainer, config: Config, out_dir: str,
     return result
 
 
+def split_device(argv: list[str]) -> tuple[list[str], str | None]:
+    """``argv`` without ``--device <cpu|cuda[:i]>`` (or ``--device=...``),
+    and the device it named (None: the card).  The device is where this
+    invocation runs, not a property of the run: it is no ``Config`` field
+    and ``params.json`` does not hold it."""
+    rest, device, i = [], None, 0
+    while i < len(argv):
+        if argv[i] == "--device":
+            if i + 1 >= len(argv):
+                raise SystemExit("--device needs a value (cpu, cuda, cuda:0)")
+            device, i = argv[i + 1], i + 2
+        elif argv[i].startswith("--device="):
+            device, i = argv[i].split("=", 1)[1], i + 1
+        else:
+            rest.append(argv[i])
+            i += 1
+    return rest, device
+
+
+def cli(argv: list[str]) -> dict:
+    """The command line: every ``Config`` flag, and ``--device``."""
+    argv, device = split_device(argv)
+    return main(get_config(argv), device=device)
+
+
 if __name__ == "__main__":
-    main(get_config(sys.argv[1:]))
+    cli(sys.argv[1:])

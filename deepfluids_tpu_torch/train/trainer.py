@@ -104,11 +104,6 @@ def _check_unported_train_flags(c: Config) -> None:
         (c.num_model_shards > 1 or c.num_data_shards > 1,
          "--num_model_shards / --num_data_shards > 1 are ROADMAP Queue A "
          "item 11"),
-        (c.profile_steps, "--profile_steps is ROADMAP Queue A item 13"),
-        (c.use_tensorboard, "--use_tensorboard is ROADMAP Queue A item 13"),
-        (c.debug_nans, "--debug_nans is ROADMAP Queue A item 13"),
-        (c.die_at_step, "--die_at_step (fault injection for "
-         "tools/supervise.py) is ROADMAP Queue A item 13"),
     ]
     for bad, what in refused:
         if bad:
@@ -147,6 +142,18 @@ def _check_arch_flags(c: Config) -> None:
     if c.decoder == "grid" and c.arch != "de":
         raise ValueError("--decoder grid applies to arch de (the "
                          "parameterized generator)")
+
+
+def _parse_profile_steps(spec: str) -> tuple[int, int] | None:
+    """``--profile_steps lo,hi`` as (lo, hi); None when unset."""
+    if not spec:
+        return None
+    try:
+        lo, hi = (int(s) for s in spec.split(","))
+    except ValueError:
+        raise ValueError(f"--profile_steps {spec!r}: expected 'lo,hi' "
+                         "(two step numbers)") from None
+    return lo, hi
 
 
 def _crossed(period: int, step: int, take: int) -> bool:
@@ -202,6 +209,9 @@ class Trainer:
         self._device_cache: tuple[torch.Tensor, torch.Tensor] | None = None
         self._dump_rng = np.random.default_rng(config.seed + 7919)
         self._eval_ae: Trainer | None = None
+        self._profile_range = _parse_profile_steps(config.profile_steps)
+        self._profiler = None   # the open --profile_steps window
+        self._tb = None         # --use_tensorboard's writer, opened by train
         if config.nn_field_w > 0:
             # --nn_field_w trains through the frozen AE decoder.
             self._ae_trainer().model.requires_grad_(False)
@@ -379,6 +389,8 @@ class Trainer:
         self.opt.zero_grad(set_to_none=True)
         loss, aux = self._loss_fn(self.model, a, b, self.step)
         loss.backward()
+        if self.c.debug_nans:
+            self._raise_if_not_finite(loss)
         if self.c.grad_clip > 0:
             clip_by_global_norm_([p.grad for p in self.model.parameters()],
                                  self.c.grad_clip)
@@ -386,6 +398,90 @@ class Trainer:
         self.step += 1
         aux["loss"] = loss
         return {k: v.detach() for k, v in aux.items()}
+
+    def _raise_if_not_finite(self, loss: torch.Tensor) -> None:
+        """``--debug_nans``: raise at the first step whose loss or gradients
+        hold a NaN or an infinity, before the update is applied.  One flag a
+        tensor, stacked and read back once: a stream sync every step, which
+        is why it stays behind the flag."""
+        named = [("loss", loss)] + [
+            (f"the gradient of {name}", p.grad)
+            for name, p in self.model.named_parameters()
+            if p.grad is not None]
+        finite = torch.stack([torch.isfinite(t).all() for _, t in named])
+        bad = (~finite).nonzero().flatten().tolist()
+        if bad:
+            raise FloatingPointError(
+                f"--debug_nans: step {self.step + 1}: {named[bad[0]][0]} is "
+                f"not finite ({len(bad)} of {len(named)} tensors checked "
+                "are not)")
+
+    # -- the operational flags: profiler window, tensorboard, fault -------
+
+    def _profile_window(self, step: int, take: int) -> None:
+        """Open ``--profile_steps lo,hi``'s window before the chunk of
+        ``take`` steps that ends at ``step`` when it reaches ``lo``; close
+        it before the first chunk that ends past ``hi``."""
+        if self._profile_range is None:
+            return
+        lo, hi = self._profile_range
+        if self._profiler is None and step >= lo and step - take < hi:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=activities)
+            self._profiler.start()
+        elif self._profiler is not None and step > hi:
+            self._stop_profiler()
+
+    def _stop_profiler(self) -> str | None:
+        """Close the open window and write what the profiler recorded as a
+        Chrome trace under ``--profile_dir`` (default ``<run>/profile/``);
+        the trace's path, None when no window was open."""
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        pdir = self.c.profile_dir or os.path.join(self.run_dir, "profile")
+        os.makedirs(pdir, exist_ok=True)
+        lo, hi = self._profile_range
+        path = os.path.join(pdir, f"steps_{lo}_{hi}.trace.json")
+        prof.export_chrome_trace(path)
+        log.info("profiled steps %d..%d -> %s", lo, hi, path)
+        return path
+
+    def _open_tensorboard(self) -> None:
+        """``--use_tensorboard``: scalars beside metrics.jsonl.  A missing
+        dependency logs a warning and training goes on."""
+        if not self.c.use_tensorboard or self._tb is not None:
+            return
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._tb = SummaryWriter(self.run_dir)
+        except Exception as e:  # noqa: BLE001 - optional dependency
+            log.warning("torch.utils.tensorboard unavailable: %s", e)
+
+    def _inject_fault(self, step: int) -> None:
+        """``--die_at_step``: once ``step`` reaches it, die with exit code 17
+        (the code ``tools/supervise`` relaunches on), without a checkpoint
+        and without flushing anything; work queued on the card is lost
+        with the process.  The sentinel ``<run>/.fault_injected`` makes the
+        relaunched run pass the step."""
+        c = self.c
+        if not c.die_at_step or step < c.die_at_step:
+            return
+        sentinel = os.path.join(self.run_dir, ".fault_injected")
+        if os.path.exists(sentinel):
+            return
+        open(sentinel, "w").close()
+        log.error("fault injection: dying at step %d without checkpointing "
+                  "(exit 17)", step)
+        os._exit(17)
 
     def _load_device_cache(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The whole normalized dataset on the device, once: fields in
@@ -458,28 +554,41 @@ class Trainer:
         start = self.step
         batch = self._batch_source(num_steps, start)
         last: dict[str, float] = {}
+        self._open_tensorboard()
         t0 = time.time()
         seen = 0
-        with open(self._metrics_path, "a") as mf:
-            while seen < num_steps:
-                take = min(k, num_steps - seen)
-                for _ in range(take):
-                    aux = self._train_step(*batch(self.step + 1))
-                seen += take
-                step = start + seen
-                if _crossed(c.log_step, step, take) or seen == num_steps:
-                    last = {name: float(v) for name, v in aux.items()}
-                    rate = seen / (time.time() - t0)
-                    mf.write(json.dumps({"step": step,
-                                         "steps_per_sec": round(rate, 3),
-                                         **last}) + "\n")
-                    mf.flush()
-                    log.info("step %d loss %.5f (%.2f it/s)", step,
-                             last["loss"], rate)
-                if _crossed(c.test_step, step, take):
-                    self._dump_samples(step)
-                if _crossed(c.save_step, step, take) or seen == num_steps:
-                    self.save_checkpoint()
+        try:
+            with open(self._metrics_path, "a") as mf:
+                while seen < num_steps:
+                    take = min(k, num_steps - seen)
+                    self._profile_window(start + seen + take, take)
+                    for _ in range(take):
+                        aux = self._train_step(*batch(self.step + 1))
+                    seen += take
+                    step = start + seen
+                    if _crossed(c.log_step, step, take) or seen == num_steps:
+                        last = {name: float(v) for name, v in aux.items()}
+                        rate = seen / (time.time() - t0)
+                        mf.write(json.dumps({"step": step,
+                                             "steps_per_sec": round(rate, 3),
+                                             **last}) + "\n")
+                        mf.flush()
+                        if self._tb is not None:
+                            for name, v in last.items():
+                                self._tb.add_scalar(name, v, step)
+                        log.info("step %d loss %.5f (%.2f it/s)", step,
+                                 last["loss"], rate)
+                    self._inject_fault(step)
+                    if _crossed(c.test_step, step, take):
+                        self._dump_samples(step)
+                    if _crossed(c.save_step, step, take) or seen == num_steps:
+                        self.save_checkpoint()
+        finally:
+            # A window still open (the run ended inside it, or a step
+            # raised) is written as far as it got.
+            self._stop_profiler()
+            if self._tb is not None:
+                self._tb.flush()
         return last
 
     # ------------------------------------------------------------------

@@ -26,14 +26,15 @@ from deepfluids_tpu_torch.infer import score as tscore
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# Refuses jax and the JAX package (the exact top-level name, not
-# deepfluids_tpu_torch) ...
+# Refuses jax, flax, the JAX package (the exact top-level name, not
+# deepfluids_tpu_torch) and the repo-root ``tools`` package ...
 _REFUSE = """
 import importlib, importlib.abc, pkgutil, sys
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "deepfluids_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "deepfluids_tpu",
+                                  "tools"):
             raise ImportError("the port imported " + name)
         return None
 
@@ -57,7 +58,57 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split()[-1]) >= 30   # every module was imported
+    assert int(out.stdout.split()[-1]) >= 41   # every module was imported
+
+
+# Every tool of the port is a module of its tools subpackage, and a few run
+# end to end with jax refused: a bench surface, the goldens check, a
+# consistency study and a record.
+_TOOLS = _REFUSE + """
+import json, os, tempfile
+from deepfluids_tpu_torch.tools import (_record, bench_suite, eval_run,
+    latent_predictability, make_goldens, regen_all, rollout_eval,
+    solver_consistency, supervise, weights_io)
+
+out = os.path.join(tempfile.mkdtemp(), "rec.jsonl")
+bench_suite.run("rollout", "cpu", out, frames=4, batch=2, hidden=8, iters=1,
+                warmup=0)
+make_goldens.check(make_goldens.compute("cpu"))
+rec = solver_consistency.main(["2d", "--height", "16", "--width", "12",
+                               "--frames", "4", "--ensemble", "1",
+                               "--device", "cpu", "--out", out])
+lines = open(out).read().splitlines()
+print(len(lines), json.loads(lines[0])["metric"], rec["metric"],
+      len(regen_all.FLEET), supervise.CHILD_MODULE)
+"""
+
+
+def test_tools_run_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _TOOLS], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-5:] == [
+        "2", "rollout_steps_per_sec", "solver_consistency_2d", "4",
+        "deepfluids_tpu_torch.main"]
+
+
+@pytest.mark.parametrize("tool", [
+    "bench_suite", "eval_run", "rollout_eval", "latent_predictability",
+    "solver_consistency", "regen_all", "weights_io", "make_goldens",
+    "supervise", "_record"])
+def test_tool_sources_name_no_jax_import(tool):
+    # Belt and braces beside the refused imports above: no tool's source
+    # imports jax, flax, the JAX package or the repo-root tools, even lazily
+    # inside a function.
+    import re
+
+    path = os.path.join(REPO, "deepfluids_tpu_torch", "tools", tool + ".py")
+    with open(path) as f:
+        src = f.read()
+    bad = re.findall(r"^\s*(?:from|import)\s+(jax|flax|deepfluids_tpu|tools)"
+                     r"(?:[.\s]|$)", src, flags=re.M)
+    assert not bad, bad
 
 
 # The datagen with jax refused: a tiny matched 2D set and a liquid step

@@ -357,15 +357,168 @@ def test_steps_per_call_rounds_up_like_jax(data_dir, tmp_path):
 @pytest.mark.parametrize("kw,match", [
     ({"input_pipeline": "grain"}, "Queue A item 11"),
     ({"num_model_shards": 2}, "Queue A item 11"),
-    ({"num_data_shards": 2}, "Queue A item 11"),
-    ({"profile_steps": "1,2"}, "Queue A item 13"),
-    ({"use_tensorboard": True}, "Queue A item 13"),
-    ({"debug_nans": True}, "Queue A item 13"),
-    ({"die_at_step": 3}, "Queue A item 13")])
+    ({"num_data_shards": 2}, "Queue A item 11")])
 def test_unported_train_flags_raise(data_dir, tmp_path, kw, match):
     with pytest.raises(NotImplementedError, match=match):
         Trainer(port_config(data_dir, str(tmp_path), **kw), device="cpu")
     assert not os.listdir(tmp_path), "nothing written before refusing"
+
+
+# --- the operational flags ---------------------------------------------------
+
+def _assert_same_state(ta, tb):
+    for k, v in ta.model.state_dict().items():
+        torch.testing.assert_close(tb.model.state_dict()[k], v, atol=0,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("spec,k,profile_dir", [
+    ("3,5", 1, ""), ("2,3", 2, "prof"), ("9,40", 1, "")])
+def test_profile_steps_writes_a_trace_and_keeps_the_trajectory(
+        data_dir, tmp_path, spec, k, profile_dir):
+    # A window inside the run, one that chunks of --steps_per_call straddle,
+    # and one the run ends in: each leaves a Chrome trace, and the weights
+    # end bit-equal to the unprofiled run's.
+    pdir = str(tmp_path / profile_dir) if profile_dir else ""
+    plain = Trainer(port_config(data_dir, str(tmp_path), tag="plain",
+                                steps_per_call=k), device="cpu")
+    plain.train(num_steps=10)
+    prof = Trainer(port_config(data_dir, str(tmp_path), tag="prof",
+                               steps_per_call=k, profile_steps=spec,
+                               profile_dir=pdir), device="cpu")
+    prof.train(num_steps=10)
+    _assert_same_state(plain, prof)
+    lo, hi = spec.split(",")
+    path = os.path.join(pdir or os.path.join(prof.run_dir, "profile"),
+                        f"steps_{lo}_{hi}.trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any("conv" in n for n in names), sorted(names)[:20]
+    assert prof._profiler is None
+    assert not os.path.exists(os.path.join(plain.run_dir, "profile"))
+
+
+def test_profile_steps_refuses_a_malformed_range(data_dir, tmp_path):
+    with pytest.raises(ValueError, match="expected 'lo,hi'"):
+        Trainer(port_config(data_dir, str(tmp_path), profile_steps="3"),
+                device="cpu")
+
+
+def _poison(trainer):
+    with torch.no_grad():
+        next(trainer.model.parameters()).view(-1)[0] = float("nan")
+
+
+def test_debug_nans_raises_at_the_poisoned_step(data_dir, tmp_path):
+    t = Trainer(port_config(data_dir, str(tmp_path), debug_nans=True),
+                device="cpu")
+    t.train(num_steps=3)            # finite: three checked steps pass
+    _poison(t)
+    with pytest.raises(FloatingPointError, match=r"step 4: loss is not "
+                                                 r"finite \(\d+ of \d+"):
+        t.train(num_steps=2)
+    assert t.step == 3, "the update of the failing step is not applied"
+    # A NaN that reaches only a gradient is named as one: sqrt has an
+    # infinite slope at 0, and 0 * inf is NaN on the way back.
+    g = Trainer(port_config(data_dir, str(tmp_path), tag="grad",
+                            debug_nans=True), device="cpu")
+    real = g._loss_fn
+
+    def loss_with_nan_grad(model, a, b, step=0):
+        loss, aux = real(model, a, b, step)
+        w = next(model.parameters())
+        return loss + 0.0 * torch.sqrt((w * 0.0).sum()), aux
+
+    g._loss_fn = loss_with_nan_grad
+    with pytest.raises(FloatingPointError, match="step 1: the gradient of"):
+        g.train(num_steps=1)
+
+
+def test_without_debug_nans_nothing_is_checked(data_dir, tmp_path,
+                                               monkeypatch):
+    def boom(self, loss):
+        raise AssertionError("finite check ran without --debug_nans")
+
+    monkeypatch.setattr(Trainer, "_raise_if_not_finite", boom)
+    t = Trainer(port_config(data_dir, str(tmp_path)), device="cpu")
+    _poison(t)
+    last = t.train(num_steps=2)     # trains on, the loss simply is NaN
+    assert t.step == 2 and np.isnan(last["loss"])
+
+
+def test_use_tensorboard_missing_dependency_warns_and_trains(
+        data_dir, tmp_path, monkeypatch, caplog):
+    import logging
+
+    # None in sys.modules makes the import raise ImportError.
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    logger = logging.getLogger("deepfluids_tpu_torch")
+    monkeypatch.setattr(logger, "propagate", True)
+    t = Trainer(port_config(data_dir, str(tmp_path), use_tensorboard=True),
+                device="cpu")
+    with caplog.at_level(logging.WARNING, logger="deepfluids_tpu_torch"):
+        t.train(num_steps=2)
+    assert t.step == 2 and t._tb is None
+    assert "torch.utils.tensorboard unavailable" in caplog.text
+
+
+def test_use_tensorboard_writes_scalars_through_the_cli(data_dir, tmp_path):
+    # The real writer, in a process of its own (its import is heavy), and
+    # the CLI's --device flag on the way: an event file beside
+    # metrics.jsonl, or the warning where the dependency is missing.
+    import subprocess
+
+    flags = [f"--{k}={v}" for k, v in _tiny_kw(
+        data_dir, str(tmp_path), tag="tb", max_step=4, log_step=2,
+        use_tensorboard=True).items()]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "deepfluids_tpu_torch.main", *flags,
+         "--device=cpu"], cwd=repo, env=env, capture_output=True, text=True,
+        timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    run = os.path.join(str(tmp_path), "tiny_smoke_tb")
+    events = glob.glob(os.path.join(run, "events.out.tfevents.*"))
+    if "torch.utils.tensorboard unavailable" in out.stderr:
+        assert not events
+    else:
+        assert len(events) == 1 and os.path.getsize(events[0]) > 100
+        with open(events[0], "rb") as f:
+            blob = f.read()
+        for tag in (b"loss", b"loss_field", b"loss_jac"):
+            assert tag in blob
+    rows = [json.loads(ln) for ln in open(os.path.join(run,
+                                                       "metrics.jsonl"))]
+    assert [r["step"] for r in rows] == [2, 4]
+    with open(os.path.join(run, "params.json")) as f:
+        saved = json.load(f)
+    assert "device" not in saved and saved["use_tensorboard"] is True
+
+
+@pytest.mark.parametrize("argv,rest,device", [
+    (["--arch", "de", "--device", "cpu", "--max_step", "3"],
+     ["--arch", "de", "--max_step", "3"], "cpu"),
+    (["--device=cuda:0", "--arch", "de"], ["--arch", "de"], "cuda:0"),
+    (["--arch", "de"], ["--arch", "de"], None),
+    (["--device", "cpu", "--device", "cuda"], [], "cuda")])
+def test_split_device(argv, rest, device):
+    from deepfluids_tpu_torch.main import split_device
+
+    assert split_device(argv) == (rest, device)
+    with pytest.raises(SystemExit):
+        split_device(argv + ["--device"])
+
+
+def test_cli_raises_without_a_card(data_dir, tmp_path):
+    from deepfluids_tpu_torch.main import cli
+
+    flags = [f"--{k}={v}" for k, v in _tiny_kw(data_dir,
+                                               str(tmp_path)).items()]
+    with pytest.raises(RuntimeError, match="found none"):
+        cli(flags)
+    assert cli(flags + ["--device", "cpu", "--max_step", "2"])["loss"] > 0
 
 
 def test_train_then_serve_loads_into_jax(data_dir, tmp_path):
