@@ -69,13 +69,13 @@ exits non-zero:
      and bases, f32, curl applied) on the card against the CPU;
  10. the datagen, through the scene functions at each configuration's full
      width (scene and frame counts cut for the time limit, the cut
-     printed): ``smoke_pos21_size5`` at 128x96 x 200 frames, a 5 x 3
+     printed): ``smoke_pos21_size5`` at 128x96 x 100 of 200 frames, a 5 x 3
      sub-grid in one scene batch with the jacobi projection and 2 x 2
      with the matched one (frames finite, density rising, the manifest's
      fields, every frame's distance to range(curl2d), matched frames
      under 1e-3 with zero wall through-flow, launch counts of the curl
      kernels exact for the matched run and zero for the jacobi one);
-     ``smoke3_vel5_buo3`` at 32x64x112 (3 scenes x a 50-frame segment
+     ``smoke3_vel5_buo3`` at 32x64x112 (3 scenes x a 25-frame segment
      jacobi, 1 scene x 4 frames matched, the 3D multigrid setup timed);
      ``liquid_pos10_size4`` (4 scenes x 60 frames, particles and P2G mass
      conserved) and ``smoke_mov`` (4 x 64, params equal to numpy's
@@ -106,6 +106,19 @@ exits non-zero:
      ``--verify_only``, and a removed file refused; ``solver_consistency``
      2D (float64 CG on the card) and matched at a cut; ``make_goldens
      --check``.  Every shape these give a kernel is one of phase 2's.
+ 12. several ranks (``deepfluids_tpu_torch/parallel``): (a) the 2D and 3D
+     fields cut into 2, 4 and 8 blocks in this process, kernels #1-#8 on
+     the haloed blocks bit-equal to the whole-field kernels, forward and
+     backward, launched exactly once a block; (b) ``launch_multihost
+     --num_processes 1`` and ``main --arch de`` on the flagship 2D (f32, l2,
+     TF32 off) as a one-rank NCCL group, its losses against the plain
+     loop's; (c) two gloo ranks on the one card: ``main --num_data_shards
+     2`` at global batch 16 against one rank at 16 (each rank launching the
+     kernels on its 8 rows), and one batch's loss and gradients from shared
+     weights under data parallelism, ``--spatial_shard`` (64 rows a rank)
+     and ``--num_model_shards 2`` against the replicated step; (d)
+     ``dryrun_multichip(2, "cuda")``; the step times of the plain loop, the
+     one-rank group and the gloo pair (printed only).
 
 Then it prints the kernels as one JSON line, the card's name and power
 limit as nvidia-smi gives them, and, last, the ``{"ok": true, ...}`` line.
@@ -1976,13 +1989,15 @@ def phase_liquid_knob_timing(device, train: dict, serving: dict,
 # published scene has).  Full width and frame length everywhere except the
 # 3D matched run; the scene counts are cut for the time limit.
 DATAGEN_CUTS = {
-    "2d_jacobi": (dict(num_pos=5, num_size=3, scene_batch=15),
-                  "5 x 3 of the 21 x 5 scenes, all 200 frames"),
+    "2d_jacobi": (dict(num_pos=5, num_size=3, scene_batch=15,
+                       num_frames=100),
+                  "5 x 3 of the 21 x 5 scenes, 100 of 200 frames"),
     "2d_matched": (dict(num_pos=2, num_size=2, scene_batch=4,
-                        projection="matched", name="smoke_matched"),
-                   "2 x 2 of the 21 x 5 scenes, all 200 frames"),
-    "3d_jacobi": (dict(num_vel=3, num_buo=1, num_frames=50),
-                  "3 x 1 of the 5 x 3 scenes, one 50-frame segment of 250"),
+                        projection="matched", name="smoke_matched",
+                        num_frames=100),
+                   "2 x 2 of the 21 x 5 scenes, 100 of 200 frames"),
+    "3d_jacobi": (dict(num_vel=3, num_buo=1, num_frames=25),
+                  "3 x 1 of the 5 x 3 scenes, one 25-frame segment of 250"),
     "3d_matched": (dict(num_vel=1, num_buo=1, num_frames=4,
                         projection="matched", name="smoke3_matched"),
                    "1 of the 5 x 3 scenes, 4 of 250 frames"),
@@ -2605,7 +2620,7 @@ def phase_datagen(device, root: str, card: str) -> dict:
 # surfaces' own defaults, three sweeps for e2e_sweep2d.
 BENCH_RUNS = {"infer2d": (5, 2), "infer3d": (3, 2), "train2d": (10, 2),
               "train3d": (5, 1), "rollout": (5, 2), "rollout_decode": (3, 2),
-              "e2e_sweep2d": (3, 1)}
+              "e2e_sweep2d": (2, 1)}
 # e2e_sweep2d's cut for the time limit: frames a scene of the 200.
 E2E_FRAMES = 40
 TOOLS_CUTS = {
@@ -3131,6 +3146,506 @@ def phase_tools(device, root: str, card: str, train: dict,
             "supervise": ctx.supervise}
 
 
+# --- phase 12: several ranks -------------------------------------------------
+
+PAR_SHARDS = (2, 4, 8)    # blocks of the simulated shards (a)
+PAR_STEPS = 3             # steps of each run through main (b, c)
+PAR_TIMED = 20            # timed train steps of each loop
+TOL_PAR_LOSS = 1e-5       # relative, a run on ranks vs the plain loop
+# One rank of phase 12's groups: the jobs of a spec file, each a list of
+# main's flags and a mode ("main": main.cli; "grads": the loss and the
+# gradients of one global batch from the run's weights.npz, with cuDNN off,
+# and with "smooth" the leaky ReLU swapped for smooth_act's formula;
+# "timed": ms per train step), with the batch dims and the rows (axis 1) of
+# each kernel's input and the launches of each job; rank 0 writes the
+# gradients.
+PAR_WORKER = r"""
+import json, sys, time
+import numpy as np, torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from deepfluids_tpu_torch import main as entry, parallel
+from deepfluids_tpu_torch.config import get_config
+from deepfluids_tpu_torch.ops import cuda_fd
+from deepfluids_tpu_torch.train.trainer import Trainer
+leaky = torch.nn.functional.leaky_relu
+seen, rows = set(), {}
+launch = cuda_fd._launch
+def recording(name, entry_, ins, outs):
+    seen.add(int(ins[0].shape[0]))
+    rows.setdefault(name, set()).add(int(ins[0].shape[1]))
+    return launch(name, entry_, ins, outs)
+cuda_fd._launch = recording
+dev = parallel.init_distributed("cuda")
+rank = parallel.world()[0]
+results = []
+for job in json.load(open(sys.argv[1])):
+    cuda_fd.reset_launch_counts()
+    seen.clear()
+    rows.clear()
+    torch.nn.functional.leaky_relu = (
+        (lambda x, s=0.2: x * (0.6 + 0.4 * torch.tanh(x)))
+        if job.get("smooth") else leaky)
+    out = {"name": job["name"]}
+    if job["mode"] == "main":
+        entry.cli(job["argv"] + ["--device", "cuda"])
+    else:
+        t = Trainer(get_config(job["argv"]), run_dir=job["run_dir"],
+                    device=dev, save_cfg=False)
+        t.restore_weights()
+        if job["mode"] == "grads":
+            d = np.load(job["batch"])
+            torch.backends.cudnn.enabled = False
+            loss, grads = t._loss_and_grads(d["a"], d["b"])
+            torch.backends.cudnn.enabled = True
+            out["loss"] = loss
+            if rank == 0:
+                np.savez(job["out"], **grads)
+        else:
+            batch = t._batch_source(job["steps"] + 2, 0)
+            for _ in range(2):
+                t._train_step(*batch(t.step + 1))
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(job["steps"]):
+                t._train_step(*batch(t.step + 1))
+            torch.cuda.synchronize(dev)
+            out["ms"] = (time.perf_counter() - t0) * 1e3 / job["steps"]
+    torch.cuda.synchronize(dev)
+    out["launches"] = dict(cuda_fd.launch_counts)
+    out["batch_dims"] = sorted(seen)
+    out["rows"] = {k: sorted(v) for k, v in rows.items()}
+    results.append(out)
+print("PAR_RESULT " + json.dumps({"rank": rank, "jobs": results}),
+      flush=True)
+"""
+
+
+def smooth_act(x, negative_slope=0.2):
+    """A smooth stand-in for the leaky ReLU (no kink; the formula of
+    PAR_WORKER's "smooth" jobs)."""
+    import torch
+
+    return x * (0.6 + 0.4 * torch.tanh(x))
+
+
+def par_simulated(device) -> dict:
+    """(a) The flagship fields cut into n blocks in this process: kernels
+    #1-#8 on the haloed blocks, put back together, bit-equal to the
+    whole-field kernels, forward and backward, each launched n times."""
+    import torch
+
+    from deepfluids_tpu_torch.ops import cuda_fd
+    from deepfluids_tpu_torch.parallel import halo
+
+    gen = torch.Generator(device).manual_seed(12)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    cases = {   # kernel: (forward, backward, input, cotangents)
+        "curl2d": (cuda_fd.curl2d_fused, cuda_fd.curl2d_bwd,
+                   rand(8, 128, 96, 1), [rand(8, 128, 96, 2)]),
+        "jacobian2d": (cuda_fd.jacobian2d_fused, halo._jac2d_bwd,
+                       rand(8, 128, 96, 2),
+                       [rand(8, 128, 96, 4), rand(8, 128, 96, 1)]),
+        "curl3d": (cuda_fd.curl3d_fused, cuda_fd.curl3d_bwd,
+                   rand(8, 32, 64, 112, 3), [rand(8, 32, 64, 112, 3)]),
+        "jacobian3d": (cuda_fd.jacobian3d_fused, halo._jac3d_bwd,
+                       rand(8, 32, 64, 112, 3),
+                       [rand(8, 32, 64, 112, 9), rand(8, 32, 64, 112, 3)]),
+    }
+    launches = {"2d": expected_launches({}), "3d": expected_launches({})}
+
+    def rows(blocks, i):
+        return (blocks[i - 1][:, -1:] if i > 0 else None,
+                blocks[i + 1][:, :1] if i < len(blocks) - 1 else None)
+
+    for name, (fwd, bwd, x, gs) in cases.items():
+        whole = fwd(x)
+        whole = whole if isinstance(whole, tuple) else (whole,)
+        whole_dx = bwd(*gs)
+        for n in PAR_SHARDS:
+            xb = [b.contiguous() for b in x.chunk(n, 1)]
+            gb = [[b.contiguous() for b in g.chunk(n, 1)] for g in gs]
+            cuda_fd.reset_launch_counts()
+            outs, dxs = [], []
+            for i in range(n):
+                o = halo.halo_forward(fwd, xb[i], rows(xb, i), i, n)
+                outs.append(o if isinstance(o, tuple) else (o,))
+                dxs.append(halo.halo_backward(
+                    bwd, [g[i] for g in gb], [rows(g, i) for g in gb], i,
+                    n))
+            torch.cuda.synchronize()
+            counts = dict(cuda_fd.launch_counts)
+            fname = name + "_fused"
+            bname = name + "_bwd"
+            if counts != expected_launches({fname: n, bname: n}):
+                raise AssertionError(f"(a) {name} over {n} blocks launched "
+                                     f"{counts}, want {n} of each")
+            for k, w in enumerate(whole):
+                if not torch.equal(torch.cat([o[k] for o in outs], 1), w):
+                    raise AssertionError(f"(a) {name} over {n} blocks: "
+                                         f"output {k} != the whole field's")
+            if not torch.equal(torch.cat(dxs, 1), whole_dx):
+                raise AssertionError(f"(a) {name} over {n} blocks: the "
+                                     "backward != the whole field's")
+            nd = name[-2:]
+            for k, v in counts.items():
+                launches[nd][k] += v
+    print(f"phase 12 (a) simulated shards: ok  kernels #1-#8 on the "
+          f"haloed blocks of 2D [8,128,96] and 3D [8,32,64,112] fields cut "
+          f"into {PAR_SHARDS} blocks (one process): outputs and backwards "
+          f"bit-equal (f32) to the whole-field kernels; launches exactly n "
+          f"of the forward and n of the backward kernel per cut", flush=True)
+    return launches
+
+
+def _par_spawn(ranks: int, backend: str, jobs: list[dict], path: str,
+               env: dict | None = None) -> list[dict]:
+    """``PAR_WORKER`` in ``ranks`` ranks on the card; each rank's results."""
+    from deepfluids_tpu_torch.tools import launch_multihost
+
+    with open(path, "w") as f:
+        json.dump(jobs, f)
+    saved = dict(os.environ)
+    os.environ.update(env or {})
+    try:
+        rcs, outs = launch_multihost.spawn(
+            [sys.executable, "-c", PAR_WORKER, path], ranks, backend,
+            capture=True, timeout=600)
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    res = []
+    for rank, (rc, out) in enumerate(zip(rcs, outs)):
+        line = [ln for ln in out.splitlines()
+                if ln.startswith("PAR_RESULT ")]
+        if rc or not line:
+            raise AssertionError(f"phase 12 rank {rank} of {ranks} "
+                                 f"({backend}) exit {rc}:\n{out[-4000:]}")
+        res.append({j["name"]: j for j in json.loads(line[0][11:])["jobs"]})
+    return res
+
+
+def _grad_errors(got: dict, want: dict) -> tuple[str, float, float]:
+    """Gradients against the replicated ones at the JAX tests' bar
+    (``assert_allclose(rtol=1e-5, atol=1e-5)``, tests/test_train.py): the
+    parameter with the largest excess ``|got - want| - 1e-5 |want|``, that
+    excess (within the bar when <= 1e-5), and its error relative to the
+    parameter's largest entry.  That relative error is not held to 1e-5:
+    at the leaky ReLU's kink a pre-activation within rounding of zero takes
+    either slope, so two exact computations that round otherwise disagree
+    by a point's whole contribution (~1e-3 of a conv kernel's largest
+    gradient entry, tests/test_torch_parallel.py's layouts on the CPU)."""
+    if set(got) != set(want):
+        raise AssertionError(f"gradient keys {sorted(got)} != "
+                             f"{sorted(want)}")
+    excess = {k: float((np.abs(got[k] - want[k])
+                        - TOL_GRAD * np.abs(want[k])).max()) for k in want}
+    worst = max(excess, key=excess.get)
+    rel = float(np.abs(got[worst] - want[worst]).max()) / float(
+        np.abs(want[worst]).max())
+    return worst, excess[worst], rel
+
+
+def _smooth_errors(got: dict, want: dict) -> tuple[str, float]:
+    """Gradients against the one-process ones, both with the smooth
+    activation: the parameter with the largest error relative to its own
+    largest entry, and that error.  conv_out's bias lies in the curl's null
+    space (its gradient is rounding noise), so it is held against the
+    largest entry of all."""
+    if set(got) != set(want):
+        raise AssertionError(f"gradient keys {sorted(got)} != "
+                             f"{sorted(want)}")
+    scale = max(float(np.abs(w).max()) for w in want.values())
+    errs = {k: float(np.abs(got[k] - w).max()) / (
+        scale if k.endswith("conv_out/bias") else float(np.abs(w).max()))
+        for k, w in want.items()}
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+def _par_flags(data_dir: str, logs: str, tag: str, batch: int,
+               steps: int) -> list[str]:
+    """main's flags of a flagship 2D f32 run (l2 loss, the device cache)
+    on phase 6's synthetic set."""
+    return ["--is_train", "True", "--arch", "de", "--data_dir", data_dir,
+            "--dataset", PATH_2D.dataset, "--log_dir", logs, "--tag", tag,
+            "--batch_size", str(batch), "--compute_dtype", "float32",
+            "--loss_norm", "l2", "--device_data_cache", "true",
+            "--num_worker", "4", "--filters", str(FLAGSHIP["filters"]),
+            "--num_conv", str(FLAGSHIP["num_conv"]), "--max_step",
+            str(steps), "--log_step", "1", "--save_step", "1000",
+            "--test_step", "1000"]
+
+
+def _par_losses(logs: str, tag: str) -> list[float]:
+    return [r["loss"] for r in _metrics(os.path.join(
+        logs, f"{PATH_2D.dataset}_{tag}"))]
+
+
+def phase_parallel(device, root: str, card: str, train: dict) -> dict:
+    """Phase 12: the parallel layer on the card.  Returns the launches of
+    each of its paths and the step times."""
+    import shutil
+
+    import torch
+
+    from deepfluids_tpu_torch.config import get_config
+    from deepfluids_tpu_torch.main import main
+    from deepfluids_tpu_torch.ops import cuda_fd
+    from deepfluids_tpu_torch.tools import dryrun
+    from deepfluids_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the launcher's one-rank demo runs beside (a) and the plain runs
+    demo = subprocess.Popen(
+        [sys.executable, "-m", "deepfluids_tpu_torch.tools.launch_multihost",
+         "--num_processes", "1"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    launches = {}
+    sim = timed("phase 12 (a)", par_simulated, device)
+    launches["sp_sim_2d"], launches["sp_sim_3d"] = sim["2d"], sim["3d"]
+    data_dir = train["2d"]["data_dir"]
+    logs = os.path.join(root, "par_logs")
+    no_tf32 = {"NVIDIA_TF32_OVERRIDE": "0"}
+    step = expected_launches(PATH_2D.step_launches)
+
+    def run_main(tag: str, batch: int, extra=()) -> list[float]:
+        cuda_fd.reset_launch_counts()
+        main(get_config(_par_flags(data_dir, logs, tag, batch, PAR_STEPS)
+                        + list(extra)), device=device)
+        want = {k: PAR_STEPS * v for k, v in step.items()}
+        if dict(cuda_fd.launch_counts) != want:
+            raise AssertionError(f"the plain loop {tag} launched "
+                                 f"{cuda_fd.launch_counts}, want {want}")
+        return _par_losses(logs, tag)
+
+    def same(got: list[float], want: list[float], what: str) -> float:
+        rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        if len(got) != len(want) or rel > TOL_PAR_LOSS:
+            raise AssertionError(f"{what}: losses {got} vs the plain loop "
+                                 f"{want}")
+        return rel
+
+    # (b) a one-rank NCCL group through main, against the plain loop
+    t0 = time.perf_counter()
+    plain8 = run_main("par_plain8", 8)
+    plain16 = run_main("par_plain16", 16)
+    ref = Trainer(get_config(_par_flags(data_dir, logs, "par_ref", 8, 1)),
+                  device=device)
+    ref.save_checkpoint()              # weights.npz of the grads jobs
+    a, b = ref.bm.step_batch(1)
+    batch_npz = os.path.join(root, "par_batch.npz")
+    np.savez(batch_npz, a=a, b=b)
+    # The gradients are compared with cuDNN off (convolutions as cuBLAS
+    # GEMMs, f32, TF32 off) on both sides: cuDNN picks its algorithms by
+    # shape, and the algorithms of a half batch or a haloed block round
+    # otherwise than the whole batch's.  The floor: the same process's
+    # gradient as the mean of two half batches.
+    torch.backends.cudnn.enabled = False
+    want_loss, want_grads = ref._loss_and_grads(a, b)
+    halves = [ref._loss_and_grads(a[h:h + 4], b[h:h + 4])[1] for h in (0, 4)]
+    floor = _grad_errors({k: (halves[0][k] + halves[1][k]) / 2
+                          for k in want_grads}, want_grads)
+    gmax = max(float(np.abs(g).max()) for g in want_grads.values())
+    leaky = torch.nn.functional.leaky_relu
+    torch.nn.functional.leaky_relu = smooth_act
+    try:
+        smooth_loss, smooth_grads = ref._loss_and_grads(a, b)
+    finally:
+        torch.nn.functional.leaky_relu = leaky
+    torch.backends.cudnn.enabled = True
+    prep_s = time.perf_counter() - t0
+    timed_jobs = {}
+    for tag in ("par_time1", "par_time2", "par_sp", "par_tp", "par_dp",
+                "par_sdp", "par_ssp", "par_stp"):
+        run = os.path.join(root, "par_runs", tag)
+        os.makedirs(run)
+        shutil.copy(os.path.join(ref.run_dir, "weights.npz"), run)
+        timed_jobs[tag] = run
+    # the plain loop's step time, in this process
+    plain_t = Trainer(get_config(_par_flags(data_dir, logs, "par_tp0", 8,
+                                            1000)),
+                      run_dir=timed_jobs["par_time1"], device=device,
+                      save_cfg=False)
+    plain_t.restore_weights()
+    batch = plain_t._batch_source(PAR_TIMED + 2, 0)
+    for _ in range(2):
+        plain_t._train_step(*batch(plain_t.step + 1))
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    for _ in range(PAR_TIMED):
+        plain_t._train_step(*batch(plain_t.step + 1))
+    torch.cuda.synchronize(device)
+    plain_ms = (time.perf_counter() - t1) * 1e3 / PAR_TIMED
+    out, _ = demo.communicate(timeout=600)
+    if demo.returncode or "one process agrees" not in out:
+        raise AssertionError(f"(b) launch_multihost --num_processes 1:\n"
+                             f"{out[-3000:]}")
+    t1 = time.perf_counter()
+    nccl = _par_spawn(1, "nccl", [
+        {"name": "main", "mode": "main",
+         "argv": _par_flags(data_dir, logs, "par_nccl", 8, PAR_STEPS)
+         + ["--num_data_shards", "1"]},
+        {"name": "timed", "mode": "timed", "steps": PAR_TIMED,
+         "run_dir": timed_jobs["par_time1"],
+         "argv": _par_flags(data_dir, logs, "par_t1", 8, 1000)}],
+        os.path.join(root, "par_nccl.json"), no_tf32)[0]
+    nccl_s = time.perf_counter() - t1
+    rel_b = same(_par_losses(logs, "par_nccl"), plain8,
+                 "(b) one-rank NCCL main")
+    want = {k: PAR_STEPS * v for k, v in step.items()}
+    if nccl["main"]["launches"] != want:
+        raise AssertionError(f"(b) launched {nccl['main']['launches']}, "
+                             f"want {want}")
+    launches["dp_nccl_2d"] = nccl["main"]["launches"]
+    print(f"phase 12 (b) one-rank NCCL group: ok  launch_multihost "
+          f"--num_processes 1 (NCCL, the card) agrees with one process; "
+          f"main --arch de flagship 2D f32 (filters "
+          f"{FLAGSHIP['filters']}, num_conv {FLAGSHIP['num_conv']}, 128x96, "
+          f"batch 8, l2, TF32 off) as a one-rank NCCL group: {PAR_STEPS} "
+          f"losses within {rel_b:.2e} of the plain loop's (tol "
+          f"{TOL_PAR_LOSS}), launches {nccl['main']['launches']} exact; "
+          f"wall {time.perf_counter() - t0:.2f} s (the plain runs, the "
+          f"reference gradients and the timed plain loop {prep_s:.2f} s; "
+          f"the NCCL rank's process {nccl_s:.2f} s)", flush=True)
+
+    # (c) two gloo ranks on the one card
+    t1 = time.perf_counter()
+    dp_flags = ["--num_data_shards", "2"]
+    layouts = {"dp": dp_flags, "sp": ["--spatial_shard", "true"],
+               "tp": ["--num_model_shards", "2"]}
+    grads_jobs = [
+        {"name": pre + name, "mode": "grads", "smooth": pre == "s",
+         "run_dir": timed_jobs[f"par_{pre}{name}"], "batch": batch_npz,
+         "out": os.path.join(root, f"par_{pre}{name}.npz"),
+         "argv": _par_flags(data_dir, logs, f"par_g_{pre}{name}", 8, 1)
+         + flags}
+        for pre in ("", "s") for name, flags in layouts.items()]
+    pair = _par_spawn(2, "gloo", [
+        {"name": "main", "mode": "main",
+         "argv": _par_flags(data_dir, logs, "par_gloo", 16, PAR_STEPS)
+         + dp_flags},
+        *grads_jobs,
+        {"name": "timed", "mode": "timed", "steps": PAR_TIMED,
+         "run_dir": timed_jobs["par_time2"],
+         "argv": _par_flags(data_dir, logs, "par_t2", 16, 1000)
+         + dp_flags}], os.path.join(root, "par_gloo.json"), no_tf32)
+    rel_c = same(_par_losses(logs, "par_gloo"), plain16,
+                 "(c) two gloo ranks at global batch 16")
+    for r, res in enumerate(pair):
+        if res["main"]["launches"] != want or res["main"]["batch_dims"] != [
+                8]:
+            raise AssertionError(f"(c) rank {r} launched "
+                                 f"{res['main']['launches']} on batches "
+                                 f"{res['main']['batch_dims']}, want {want} "
+                                 "on 8 rows")
+    one_step = expected_launches(PATH_2D.step_launches)
+    used = [k for k, v in one_step.items() if v]
+    # The kernels' inputs: the whole 128 rows unless --spatial_shard; there
+    # rank 0's forward kernels read its 64 rows and the successor's first
+    # (65), its backward ones 64 + 2 (the transposed stencil's tail), and
+    # the last rank's forward its 64 (the kernel's own edge), its backward
+    # the predecessor's row + 64.
+    height = PATH_2D.resolution[0]
+    half = height // 2
+    sp_rows = [{k: [half + 2 if k.endswith("_bwd") else half + 1]
+                for k in used},
+               {k: [half + 1 if k.endswith("_bwd") else half] for k in used}]
+    whole_rows = {k: [height] for k in used}
+    for r, res in enumerate(pair):
+        for name in ("main", "dp", "tp", "sp", "sdp", "stp", "ssp"):
+            want_rows = sp_rows[r] if name.endswith("sp") else whole_rows
+            if res[name]["rows"] != want_rows:
+                raise AssertionError(f"(c) {name} rank {r}: the kernels' "
+                                     f"inputs had {res[name]['rows']} rows, "
+                                     f"want {want_rows}")
+    errs, smooth = {}, {}
+    for name in layouts:
+        with np.load(os.path.join(root, f"par_{name}.npz")) as d:
+            got = {k: d[k] for k in d.files}
+        errs[name] = (pair[0][name]["loss"], *_grad_errors(got, want_grads))
+        launches[f"{name}_grads_2d"] = {
+            k: sum(res[name]["launches"][k] for res in pair)
+            for k in one_step}
+        with np.load(os.path.join(root, f"par_s{name}.npz")) as d:
+            got = {k: d[k] for k in d.files}
+        smooth[name] = (pair[0]["s" + name]["loss"],
+                        *_smooth_errors(got, smooth_grads))
+    print(f"phase 12 (c) gradients, cuDNN off, largest entry {gmax:.3e}; "
+          f"worst |diff| - 1e-5 |g| (relative to that parameter's largest "
+          f"entry): floor (two half batches in one process) "
+          f"{floor[1]:.2e} ({floor[0]}, {floor[2]:.2e}); "
+          + "; ".join(f"{n} loss {e[0]!r} vs {want_loss!r}, {e[2]:.2e} "
+                      f"({e[1]}, {e[3]:.2e})" for n, e in errs.items()),
+          flush=True)
+    print(f"phase 12 (c) gradients with the smooth stand-in for the leaky "
+          f"ReLU, cuDNN off, each parameter's error relative to its largest "
+          f"entry (conv_out's bias: to the largest of all): "
+          + "; ".join(f"{n} loss {e[0]!r} vs {smooth_loss!r}, {e[2]:.2e} "
+                      f"({e[1]})" for n, e in smooth.items()), flush=True)
+    for name, (loss, worst, err) in smooth.items():
+        bad = [r for r, res in enumerate(pair)
+               if res["s" + name]["launches"] != one_step]
+        if bad or err > TOL_GRAD or abs(loss - smooth_loss) > (
+                TOL_PAR_LOSS * abs(smooth_loss)):
+            got = [res["s" + name]["launches"] for res in pair]
+            raise AssertionError(f"(c) smooth {name}: loss {loss} vs "
+                                 f"{smooth_loss}, gradient error {err} "
+                                 f"({worst}) relative to the parameter's "
+                                 f"largest entry, launches of ranks {got}, "
+                                 f"want {one_step} each")
+    for name, (loss, worst, err, _) in errs.items():
+        bad = [r for r, res in enumerate(pair)
+               if res[name]["launches"] != one_step]
+        if bad or err > TOL_GRAD or abs(loss - want_loss) > (
+                TOL_PAR_LOSS * abs(want_loss)):
+            raise AssertionError(f"(c) {name}: loss {loss} vs {want_loss}, "
+                                 f"gradient error {err} ({worst}), "
+                                 f"launches of ranks "
+                                 f"{[res[name]['launches'] for res in pair]}"
+                                 f", want {one_step} each")
+    launches["dp_2d"] = {k: sum(res["main"]["launches"][k] for res in pair)
+                         for k in one_step}
+    tp_vs_dp = abs(errs["tp"][0] - errs["dp"][0]) / abs(errs["dp"][0])
+    if tp_vs_dp > TOL_PAR_LOSS:
+        raise AssertionError(f"(c) TP loss {errs['tp'][0]} != DP "
+                             f"{errs['dp'][0]}")
+    print(f"phase 12 (c) two gloo ranks on the card: ok  main "
+          f"--num_data_shards 2 at global batch 16: {PAR_STEPS} losses "
+          f"within {rel_c:.2e} of one rank at 16, each rank launching "
+          f"{want} on its 8 rows; one f32 batch of 8 from shared weights: "
+          + "; ".join(f"{n} loss {errs[n][0]!r} (plain {want_loss!r}), "
+                      f"gradients within rtol/atol {TOL_GRAD} (worst excess "
+                      f"{errs[n][2]:.2e}, {errs[n][1]})"
+                      for n in ("dp", "sp", "tp"))
+          + f"; with the smooth activation every parameter within "
+          f"{TOL_GRAD} of its largest entry (worst "
+          f"{max(e[2] for e in smooth.values()):.2e}); --spatial_shard over "
+          f"2 ranks: the kernels read {pair[0]['sp']['rows']} rows on rank 0 "
+          f"and {pair[1]['sp']['rows']} on rank 1 (64 a rank + halo); "
+          f"--num_model_shards 2 first-step loss within {tp_vs_dp:.2e} of "
+          f"DP's; wall {time.perf_counter() - t1:.2f} s", flush=True)
+
+    # (d) the dry run's stages in two ranks on the card
+    t1 = time.perf_counter()
+    lines = dryrun.dryrun_multichip(2, "cuda")
+    print(f"phase 12 (d) dryrun_multichip(2, 'cuda'): ok  {len(lines)} "
+          f"stages; wall {time.perf_counter() - t1:.2f} s", flush=True)
+    times = {"plain_ms": plain_ms, "nccl1_ms": nccl["timed"]["ms"],
+             "gloo2_ms": max(r["timed"]["ms"] for r in pair)}
+    print(f"phase 12 step times [{card}]: flagship 2D f32 train step "
+          f"(recorded, not targets): plain loop batch 8 "
+          f"{times['plain_ms']:.2f} ms; one-rank NCCL group batch 8 "
+          f"{times['nccl1_ms']:.2f} ms; two gloo ranks on the one card, "
+          f"global batch 16 (8 a rank) {times['gloo2_ms']:.2f} ms",
+          flush=True)
+    return {"launches": launches, "times": times}
+
+
 def timed(label: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its wall time printed under ``label``."""
     t0 = time.perf_counter()
@@ -3189,6 +3704,7 @@ def run(device, card: str) -> list[dict]:
         datagen = timed("phase 10", phase_datagen, device, root, card)
         tools = timed("phase 11", phase_tools, device, root, card, train,
                       mov)
+        par = timed("phase 12", phase_parallel, device, root, card, train)
         timed("profiles", profiles, device, serving, timing, train_timing,
               card)
     leaked = sorted(m for m in sys.modules
@@ -3217,6 +3733,17 @@ def run(device, card: str) -> list[dict]:
         # children's and the fleet's datagen child's are their own).
         for tag, counts in tools["launches"].items():
             by_path[f"tools_{tag}"] = counts[name]
+        # Phase 12: the simulated shards (sp_sim_*), the one-rank NCCL run
+        # (dp_nccl_2d) and the two gloo ranks' runs (dp_2d, and one batch
+        # each of dp_grads_2d, sp_grads_2d, tp_grads_2d), summed over ranks.
+        for tag, counts in par["launches"].items():
+            by_path[tag] = counts[name]
+        par_paths = (("sp_sim_3d",) if nd == 3 else (
+            "sp_sim_2d", "dp_nccl_2d", "dp_2d", "dp_grads_2d",
+            "sp_grads_2d", "tp_grads_2d"))
+        if any(by_path[p] == 0 for p in par_paths):
+            raise AssertionError(f"{name} never launched on a phase 12 "
+                                 f"path: {by_path}")
         bench = "tools_bench_train2d" if nd == 2 else "tools_bench_train3d"
         if by_path[bench] == 0:
             raise AssertionError(f"{name} never launched on the bench_suite "

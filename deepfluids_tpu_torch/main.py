@@ -30,6 +30,19 @@ Counterpart of :mod:`deepfluids_tpu.main` with the same flag set
     python -m deepfluids_tpu_torch.main --arch nn --is_train False \\
         --load_path <nn run> --ae_load_path <ae run>
 
+    # several ranks (one process each): torchrun, or the port's launcher
+    torchrun --nproc_per_node 2 -m deepfluids_tpu_torch.main \\
+        --dataset smoke_pos21_size5 --num_data_shards 2
+    python -m deepfluids_tpu_torch.tools.launch_multihost \\
+        --num_processes 2 -- python -m deepfluids_tpu_torch.main \\
+        --dataset smoke_pos21_size5 --spatial_shard true
+
+Under ``WORLD_SIZE`` (torchrun's variables) :func:`main` joins the process
+group first (:func:`..parallel.init_distributed`): each rank trains its
+part of the layout (``--num_data_shards``, ``--num_model_shards``,
+``--spatial_shard``) and rank 0 writes the run; a test invocation serves
+from rank 0 alone.
+
 A test invocation rebuilds the run's model from its ``params.json``
 (the AE of an "nn" rollout from ``--ae_load_path``'s) and loads
 ``<run>/weights.npz``, which training writes at every checkpoint.  All of
@@ -46,6 +59,7 @@ import sys
 import numpy as np
 import torch
 
+from deepfluids_tpu_torch import parallel
 from deepfluids_tpu_torch.config import (
     Config,
     get_config,
@@ -72,7 +86,8 @@ def main(config: Config, device: str | torch.device | None = None) -> dict:
                 "(torch.cuda.is_available() is False); pass device='cpu' "
                 "to run the plain PyTorch path on the CPU")
         device = "cuda"
-    device = torch.device(device)
+    device = parallel.init_distributed(device)
+    rank, world = parallel.world()
     np.random.seed(config.seed)
     torch.manual_seed(config.seed)
     if config.is_train:
@@ -92,6 +107,10 @@ def main(config: Config, device: str | torch.device | None = None) -> dict:
     if not config.load_path:
         raise SystemExit("--is_train=false needs --load_path "
                          "(a trained run directory)")
+    if rank:
+        log.info("serving runs on rank 0 of %d; rank %d has nothing to do",
+                 world, rank)
+        return {}
     # Rebuild the TRAINED architecture from the run's own params.json;
     # explicit CLI flags still override.
     config = merge_test_config(config, config.load_path)

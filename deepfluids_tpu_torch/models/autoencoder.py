@@ -39,6 +39,8 @@ from deepfluids_tpu_torch.models.generator import (
     default_repeat,
 )
 from deepfluids_tpu_torch.models.latent import LatentIntegrator
+from deepfluids_tpu_torch.parallel import layers
+from deepfluids_tpu_torch.parallel.comm import Shard
 
 
 def same_pads(spatial: Sequence[int], stride: int,
@@ -63,6 +65,11 @@ class Encoder(nn.Module):
         derives it from ``spatial`` with :func:`.default_repeat`.
       compute_dtype: dtype every layer computes in (float32 or bfloat16);
         parameters stay float32, as Flax's ``dtype=`` keeps them.
+
+    After :meth:`shard_rows` the input is the rank's rows of the field and
+    the maps stay sharded while their first extent halves evenly per rank;
+    the first map that does not is gathered, and ``fc_out`` sums each
+    rank's rows' part of the product (:mod:`..parallel.layers`).
     """
 
     def __init__(self, spatial: Sequence[int], in_channels: int,
@@ -95,31 +102,37 @@ class Encoder(nn.Module):
                 self._down_pads.append(same_pads(spatial, 2))
                 spatial = tuple(-(-s // 2) for s in spatial)
         self.fc_out = nn.Linear(math.prod(spatial) * filters, z_num)
+        self.row_shard: Shard | None = None
 
-    def _conv(self, layer: nn.Module, x: torch.Tensor, stride: int = 1,
-              padding: int = 1) -> torch.Tensor:
-        dt = self.compute_dtype
-        return self._conv_fn(x, layer.weight.to(dt), layer.bias.to(dt),
-                             stride=stride, padding=padding)
+    def shard_rows(self, shard: Shard | None) -> None:
+        """Take the rank's rows of the field over ``shard``."""
+        self.row_shard = shard
+
+    def _conv(self, layer: nn.Module, x: torch.Tensor,
+              rows: Shard | None) -> torch.Tensor:
+        return layers.conv(x, layer, self.compute_dtype, self._conv_fn,
+                           row_shard=rows)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        h = self._conv(self.conv_in, x.to(dt).permute(*self._to_nc))
+        rows = self.row_shard if (self.row_shard is not None
+                                  and self.row_shard.active) else None
+        h = self._conv(self.conv_in, x.to(dt).permute(*self._to_nc), rows)
         h0 = h
         for stage in range(self.repeat):
             for c in range(self.num_conv):
                 h = F.leaky_relu(
-                    self._conv(getattr(self, f"conv_{stage}_{c}"), h),
+                    self._conv(getattr(self, f"conv_{stage}_{c}"), h, rows),
                     ACT_SLOPE)
             h = h + h0
             if stage < self.repeat - 1:
-                h = F.pad(h, self._down_pads[stage])
-                h = F.leaky_relu(self._conv(getattr(self, f"down_{stage}"),
-                                            h, stride=2, padding=0),
-                                 ACT_SLOPE)
+                h, still = layers.conv_down(
+                    h, getattr(self, f"down_{stage}"), dt, self._conv_fn,
+                    self._down_pads[stage], rows)
+                rows = rows if still else None
+                h = F.leaky_relu(h, ACT_SLOPE)
                 h0 = h
-        h = h.permute(*self._to_last).reshape(h.shape[0], -1)
-        z = F.linear(h, self.fc_out.weight.to(dt), self.fc_out.bias.to(dt))
+        z = layers.dense_rows(h, self.fc_out, dt, rows)
         return z.float()
 
 
@@ -161,6 +174,11 @@ class Autoencoder(nn.Module):
             self.predictor = LatentIntegrator(
                 z_num=z_num, num_param=num_param, hidden=pred_hidden,
                 depth=pred_depth)
+
+    def shard_rows(self, shard: Shard | None) -> None:
+        """Shard the encoder's input and the decoder's output rows."""
+        self.encoder.shard_rows(shard)
+        self.decoder.shard_rows(shard)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         z = self.encoder(x)

@@ -41,6 +41,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deepfluids_tpu_torch.parallel import layers
+from deepfluids_tpu_torch.parallel.comm import Shard
+
 ACT_SLOPE = 0.2   # leaky ReLU slope (the JAX module's act_slope default)
 
 
@@ -270,8 +273,14 @@ class GeneratorBE(nn.Module):
         in f32 of the widened vector, ``basis_k`` ``(R, *res_k, F)`` zero at
         init, ``inj_k`` a 1x1(x1) conv without a bias in ``compute_dtype``.
 
-    Spatial sharding (the JAX module's ``spatial_mesh``) is not ported; the
-    trainer refuses ``--spatial_shard``.
+    Spatial sharding (the JAX module's ``spatial_mesh``): after
+    :meth:`shard_rows`, every feature map whose first spatial extent divides
+    by the group size holds the rank's rows (the coarser ones stay
+    replicated), and the output is the rank's rows of the field.  The
+    spectral residuals and the basis injection transform whole maps and
+    are refused with it by the trainer.  Conv layers cut by
+    :func:`..parallel.mesh.shard_channels_` compute their channels and
+    gather the rest (:func:`..parallel.layers.conv`).
     """
 
     def __init__(self, output_shape: Sequence[int] = (128, 96, 1),
@@ -330,11 +339,19 @@ class GeneratorBE(nn.Module):
                 self.add_module(f"spectral_{stage}", SpectralResidual(
                     spectral_modes, res, filters))
         self.conv_out = conv(filters, self.output_shape[-1], 3, padding=1)
+        self.row_shard: Shard | None = None
 
-    def _conv(self, layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        return self._conv_fn(x, layer.weight.to(dt), layer.bias.to(dt),
-                             padding=1)
+    def shard_rows(self, shard: Shard | None) -> None:
+        """Shard the feature maps' first spatial axis over ``shard``."""
+        self.row_shard = shard
+
+    def _conv(self, layer: nn.Module, x: torch.Tensor,
+              extent: int) -> torch.Tensor:
+        """A 3x3(x3) 'SAME' conv of a map of ``extent`` rows."""
+        rs = self.row_shard
+        return layers.conv(x, layer, self.compute_dtype, self._conv_fn,
+                           row_shard=rs if layers.sharded(extent, rs)
+                           else None)
 
     def _basis_inject(self, z: torch.Tensor, stage: int) -> torch.Tensor:
         """Stage ``stage``'s injection ``[B, filters, *res]``: the codes
@@ -347,8 +364,8 @@ class GeneratorBE(nn.Module):
         inj = (a @ basis.reshape(basis.shape[0], -1)).view(
             -1, *basis.shape[1:]).permute(*self._to_nc)
         dt = self.compute_dtype
-        return self._conv_fn(inj.to(dt), getattr(
-            self, f"inj_{stage}").weight.to(dt))
+        return layers.conv(inj.to(dt), getattr(self, f"inj_{stage}"), dt,
+                           self._conv_fn, padding=0, bias=False)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -359,20 +376,26 @@ class GeneratorBE(nn.Module):
         x = F.linear(z.to(dt), self.fc_in.weight.to(dt),
                      self.fc_in.bias.to(dt))
         x = x.view(-1, *self.coarse, self.filters).permute(*self._to_nc)
+        extent = self.coarse[0]       # the map's first extent, whole
+        x = layers.enter(x, self.row_shard)
         x0 = x
         for stage in range(self.repeat):
             if self.inject:
                 x = x + self._basis_inject(z, stage)
             for c in range(self.num_conv):
-                x = F.leaky_relu(
-                    self._conv(getattr(self, f"conv_{stage}_{c}"), x),
-                    ACT_SLOPE)
+                x = F.leaky_relu(self._conv(
+                    getattr(self, f"conv_{stage}_{c}"), x, extent), ACT_SLOPE)
             if self.spectral:
                 x = getattr(self, f"spectral_{stage}")(x)
             if stage < self.repeat - 1:
+                # a sharded map's rows upsample to the rows of the next
+                was = layers.sharded(extent, self.row_shard)
                 x = upscale_nearest(x + x0, 2)
+                extent *= 2
+                if not was:
+                    x = layers.enter(x, self.row_shard)
                 x0 = x
             else:
                 x = x + x0
-        out = self._conv(self.conv_out, x)
+        out = self._conv(self.conv_out, x, extent)
         return out.permute(*self._to_last).float()

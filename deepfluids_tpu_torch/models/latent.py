@@ -75,23 +75,29 @@ def noise_generator(seed: int, step: int,
 
 
 def _noise(noise_std: float, generator: torch.Generator | None, steps: int,
-           like: torch.Tensor, n_free: int) -> torch.Tensor | None:
+           like: torch.Tensor, n_free: int,
+           rows: tuple[int, int] | None = None) -> torch.Tensor | None:
     """``[steps, B, n_free]`` Gaussian noise of std ``noise_std``, or None
-    when ``noise_std`` is 0."""
+    when ``noise_std`` is 0.  ``rows`` ``(global batch, first row)``: the
+    noise of the whole global batch is drawn and these B rows kept, so a
+    batch split over ranks gets the one-process noise."""
     if noise_std <= 0.0:
         return None
     if generator is None:
         raise ValueError("rollout(noise_std>0) needs a generator")
+    b = like.shape[-2]
+    total, first = rows or (b, 0)
     return noise_std * torch.randn(
-        (steps, like.shape[-2], n_free), generator=generator,
-        device=like.device, dtype=like.dtype)
+        (steps, total, n_free), generator=generator,
+        device=like.device, dtype=like.dtype)[:, first:first + b]
 
 
 def rollout(apply_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
             z0: torch.Tensor, p_seq: torch.Tensor, num_param: int,
             remat: bool = False, noise_std: float = 0.0,
             generator: torch.Generator | None = None,
-            history: int = 1) -> torch.Tensor:
+            history: int = 1,
+            noise_rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Advance a latent code through a parameter trajectory.
 
     Args:
@@ -107,6 +113,8 @@ def rollout(apply_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
         from ``generator`` as JAX draws it from its key.
       history: H > 1 feeds the integrator ``[z_t ; z_{t-1} ; .. ;
         z_{t-H+1} ; dp_t]`` (:func:`_rollout_history`).
+      noise_rows: ``(global batch, first row)`` when these B rows are a
+        rank's part of a larger batch (the noise is the global batch's).
 
     Returns:
       ``[T, B, z_num]``, step 0 included (with history H the first H
@@ -114,11 +122,11 @@ def rollout(apply_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     """
     if history > 1 or z0.dim() == 3:
         return _rollout_history(apply_fn, z0, p_seq, num_param, history,
-                                remat, noise_std, generator)
+                                remat, noise_std, generator, noise_rows)
     z_free = z0[:, num_param:]
     dp_seq = p_seq[1:] - p_seq[:-1]
     eps_seq = _noise(noise_std, generator, dp_seq.shape[0], z_free,
-                     z_free.shape[-1])
+                     z_free.shape[-1], noise_rows)
 
     def step(z_free, p_cur, dp, eps):
         if eps is not None:
@@ -137,7 +145,7 @@ def rollout(apply_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
 
 
 def _rollout_history(apply_fn, z0, p_seq, num_param, history, remat,
-                     noise_std, generator):
+                     noise_std, generator, noise_rows=None):
     """History-H rollout (see :func:`rollout`): carries the last H codes as
     a ``[H, B, z_num]`` window, feeds the integrator the window newest
     first, and advances the free block as the first-order path does."""
@@ -151,7 +159,7 @@ def _rollout_history(apply_fn, z0, p_seq, num_param, history, remat,
     zwin = torch.cat([p_seq[:h], z0[:, :, num_param:]], dim=-1)
     dp_seq = p_seq[h:] - p_seq[h - 1:-1]          # dp_t for t = H-1..T-2
     eps_seq = _noise(noise_std, generator, dp_seq.shape[0], z0,
-                     z0.shape[-1] - num_param)
+                     z0.shape[-1] - num_param, noise_rows)
 
     def step(zwin, dp, p_next, eps):
         z_free = zwin[-1][:, num_param:]

@@ -65,16 +65,25 @@ def _to_flax_layout(arr: np.ndarray, torch_key: str) -> np.ndarray:
     return arr.transpose(*range(2, arr.ndim), 1, 0)
 
 
-def flax_shapes(model: nn.Module) -> dict[str, tuple[int, ...]]:
-    """The flat Flax keys and shapes ``model`` expects, in module order."""
+def _template(model: nn.Module | Mapping[str, torch.Tensor]
+              ) -> Mapping[str, torch.Tensor]:
+    return model if isinstance(model, Mapping) else model.state_dict()
+
+
+def flax_shapes(model: nn.Module | Mapping[str, torch.Tensor]
+                ) -> dict[str, tuple[int, ...]]:
+    """The flat Flax keys and shapes ``model`` (or a ``state_dict``
+    template) expects, in module order."""
     return {_flax_key(key): _to_flax_layout(np.empty(tuple(t.shape), bool),
                                             key).shape
-            for key, t in model.state_dict().items()}
+            for key, t in _template(model).items()}
 
 
 def flax_to_state_dict(flat: Mapping[str, np.ndarray],
-                       model: nn.Module) -> dict[str, torch.Tensor]:
-    """Convert flat Flax params to ``model``'s state_dict (float32)."""
+                       model: nn.Module | Mapping[str, torch.Tensor]
+                       ) -> dict[str, torch.Tensor]:
+    """Convert flat Flax params to ``model``'s state_dict (float32); a
+    ``state_dict`` template (shapes only) may stand for the model."""
     want = flax_shapes(model)
     missing = sorted(set(want) - set(flat))
     if missing:
@@ -93,7 +102,7 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray],
     return {key: torch.from_numpy(np.array(_to_torch_layout(
                 np.asarray(flat[_flax_key(key)], np.float32), key),
                 order="C"))
-            for key in model.state_dict()}
+            for key in _template(model)}
 
 
 def load_flax_npz(path: str, model: nn.Module) -> nn.Module:
@@ -113,14 +122,19 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
             for key, t in state_dict.items()}
 
 
-def save_flax_npz(model: nn.Module, path: str) -> str:
-    """Write ``model``'s weights as a ``weights_io.export_npz`` file; the
-    file is replaced in one rename, so a reader never sees half of it."""
+def save_flax_npz(model: nn.Module, path: str,
+                  state_dict: Mapping[str, torch.Tensor] | None = None) -> str:
+    """Write ``model``'s weights (or ``state_dict``, the whole of a model
+    whose layers are cut over ranks) as a ``weights_io.export_npz`` file;
+    the file is replaced in one rename, so a reader never sees half of
+    it."""
+    if state_dict is None:
+        state_dict = model.state_dict()
     d = os.path.dirname(os.path.abspath(path))
     fd, tmp = tempfile.mkstemp(suffix=".npz", dir=d)
     try:
         with os.fdopen(fd, "wb") as f:
-            np.savez_compressed(f, **state_dict_to_flax(model.state_dict()))
+            np.savez_compressed(f, **state_dict_to_flax(state_dict))
         os.replace(tmp, path)
     except BaseException:
         os.unlink(tmp)

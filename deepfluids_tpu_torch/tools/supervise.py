@@ -17,7 +17,10 @@ Usage::
         -- --dataset smoke_pos21_size5 --max_step 300000 [--device cpu] ...
 
 Everything after ``--`` goes to ``deepfluids_tpu_torch.main`` verbatim,
-``--device`` included.
+``--device`` included.  ``--num_processes N`` (N > 1) runs the child as a
+group of N ranks on that device through ``tools/launch_multihost``, which
+exits 17 when the ranks die at ``--die_at_step``, so the whole group is
+relaunched.
 
 Failures are classified by PROGRESS: a child that advanced
 metrics/checkpoints counts against --max_restarts; a child that died
@@ -77,7 +80,8 @@ def _progress_marker(run_dir: str) -> tuple:
 
 def supervise(child_args: list[str], max_restarts: int = 10,
               restart_on: str = "17", backoff: float = 1.0,
-              max_outage_secs: float = 14400.0) -> int:
+              max_outage_secs: float = 14400.0,
+              num_processes: int = 1) -> int:
     """Relaunch loop with OUTAGE AWARENESS: a child that dies without
     having made any progress since its launch (no metrics/checkpoint
     advance, e.g. no card at start-up) does NOT consume the restart budget;
@@ -86,6 +90,14 @@ def supervise(child_args: list[str], max_restarts: int = 10,
     ``max_outage_secs``."""
     run_dir, child_args = _child_run_dir(child_args)
     cmd = [sys.executable, "-m", CHILD_MODULE] + child_args
+    if num_processes > 1:
+        from deepfluids_tpu_torch.main import split_device
+
+        device = (split_device(child_args)[1] or "cuda").split(":")[0]
+        cmd = [sys.executable, "-m",
+               "deepfluids_tpu_torch.tools.launch_multihost",
+               "--num_processes", str(num_processes), "--device", device,
+               "--"] + cmd
     restarts = 0
     outage_started: float | None = None
     outage_tries = 0
@@ -147,9 +159,11 @@ def main(argv: list[str] | None = None) -> int:
                    help="give up after this long with NO child progress "
                         "(no-progress failures back off exponentially and "
                         "do not consume --max_restarts)")
+    p.add_argument("--num_processes", type=int, default=1,
+                   help="ranks of the child (> 1: through launch_multihost)")
     a = p.parse_args(own)
     return supervise(child, a.max_restarts, a.restart_on, a.backoff,
-                     a.max_outage_secs)
+                     a.max_outage_secs, a.num_processes)
 
 
 if __name__ == "__main__":

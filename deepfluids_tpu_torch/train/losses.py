@@ -13,9 +13,16 @@ the differentiable kernel wrappers :func:`cuda_fd.curl2d_p` /
 :func:`cuda_fd.curl3d_p` / :func:`cuda_fd.jacobian3d_p` for 3D fields
 ``[B, D, H, W, C]`` (their plain versions for CPU tensors).  For scalar
 (levelset) fields the jacobian term is the spatial gradient of the scalar,
-in plain torch as in the JAX package.  The JAX package's multi-chip
-``_maybe_shard_batch`` is not ported (one card runs each kernel on the
-whole batch).
+in plain torch as in the JAX package.
+
+Several ranks: under data parallelism each rank runs the kernels on its
+own rows (the JAX package's ``_maybe_shard_batch``) and takes the mean of
+its rows; ``group`` (the data group) makes the relative weights' mean that
+of the global batch, so the mean over ranks is the one-process loss.  The
+``*_spatial`` functions take the rank's rows of the grid (``rows``, the
+data group under ``--spatial_shard``) through the haloed kernels of
+:mod:`..parallel.halo` and return the rank's share of the loss: its sum
+over the group is the one-process loss.
 """
 
 from __future__ import annotations
@@ -25,6 +32,13 @@ from typing import Callable
 import torch
 
 from deepfluids_tpu_torch.ops import cuda_fd, fd
+from deepfluids_tpu_torch.parallel import halo
+from deepfluids_tpu_torch.parallel.comm import (
+    SINGLE,
+    Shard,
+    all_reduce_,
+    global_mean,
+)
 
 
 def _dist(norm: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -69,19 +83,44 @@ def jacobian_of(x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unsupported field shape {tuple(x.shape)}")
 
 
-def _sample_weights(target: torch.Tensor,
-                    eps: float = 0.05) -> torch.Tensor:
+def _sample_weights(target: torch.Tensor, eps: float = 0.05,
+                    group: Shard = SINGLE,
+                    rows: Shard | None = None) -> torch.Tensor:
     """Per-sample weights ~ ``1 / (mean|target| + eps)``, normalized to mean
-    1, shaped to broadcast over a sample (relative-error training)."""
+    1 over the (global) batch, shaped to broadcast over a sample
+    (relative-error training).  ``group``: the batch is split over it;
+    ``rows``: each sample's rows are."""
     axes = tuple(range(1, target.dim()))
-    w = 1.0 / (torch.mean(torch.abs(target), dim=axes) + eps)
-    w = w / torch.mean(w)
+    if rows is None or not rows.active:
+        m = torch.mean(torch.abs(target), dim=axes)
+    else:
+        m = all_reduce_(torch.sum(torch.abs(target), dim=axes), rows) / (
+            target[0].numel() * rows.size)
+    w = 1.0 / (m + eps)
+    w = w / global_mean(w, group)
     return w.reshape((-1,) + (1,) * (target.dim() - 1))
 
 
+def _weighted(ef: torch.Tensor, ej: torch.Tensor, target: torch.Tensor,
+              relative: bool, norm: str, group: Shard,
+              rows: Shard | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The field and jacobian terms: means, or, over sharded ``rows``, the
+    rank's share of them (its sum over the global count)."""
+    if relative:
+        wb = _sample_weights(target, group=group, rows=rows)
+        if norm == "l2":
+            wb = torch.square(wb)
+            wb = wb / global_mean(wb, group)
+        ef, ej = wb * ef, wb * ej
+    if rows is None or not rows.active:
+        return torch.mean(ef), torch.mean(ej)
+    return (torch.sum(ef) / (ef.numel() * rows.size),
+            torch.sum(ej) / (ej.numel() * rows.size))
+
+
 def field_loss(pred: torch.Tensor, target: torch.Tensor, w1: float,
-               w2: float, relative: bool = False,
-               norm: str = "l1") -> tuple[torch.Tensor, dict]:
+               w2: float, relative: bool = False, norm: str = "l1",
+               group: Shard = SINGLE) -> tuple[torch.Tensor, dict]:
     """``w1 * dist(field) + w2 * dist(jacobian)``, the reconstruction loss.
 
     ``relative`` weights each sample by :func:`_sample_weights` (squared and
@@ -89,16 +128,7 @@ def field_loss(pred: torch.Tensor, target: torch.Tensor, w1: float,
     dist = _dist(norm)
     ef = dist(pred - target)
     ej = dist(jacobian_of(pred) - jacobian_of(target))
-    if relative:
-        wb = _sample_weights(target)
-        if norm == "l2":
-            wb = torch.square(wb)
-            wb = wb / torch.mean(wb)
-        loss_f = torch.mean(wb * ef)
-        loss_j = torch.mean(wb * ej)
-    else:
-        loss_f = torch.mean(ef)
-        loss_j = torch.mean(ej)
+    loss_f, loss_j = _weighted(ef, ej, target, relative, norm, group, None)
     return w1 * loss_f + w2 * loss_j, {"loss_field": loss_f,
                                        "loss_jac": loss_j}
 
@@ -118,10 +148,11 @@ def apply_curl(out: torch.Tensor) -> torch.Tensor:
 
 def generator_loss(net_out: torch.Tensor, x: torch.Tensor, use_curl: bool,
                    w1: float, w2: float, relative: bool = False,
-                   norm: str = "l1") -> tuple[torch.Tensor, dict]:
+                   norm: str = "l1", group: Shard = SINGLE
+                   ) -> tuple[torch.Tensor, dict]:
     """Arch "de" loss; ``net_out`` is psi (``use_curl``) or the field."""
     pred = apply_curl(net_out) if use_curl else net_out
-    loss, aux = field_loss(pred, x, w1, w2, relative, norm)
+    loss, aux = field_loss(pred, x, w1, w2, relative, norm, group)
     aux["pred"] = pred
     return loss, aux
 
@@ -129,12 +160,63 @@ def generator_loss(net_out: torch.Tensor, x: torch.Tensor, use_curl: bool,
 def autoencoder_loss(net_out: torch.Tensor, z: torch.Tensor, x: torch.Tensor,
                      y: torch.Tensor, use_curl: bool, num_param: int,
                      w1: float, w2: float, w3: float, relative: bool = False,
-                     norm: str = "l1") -> tuple[torch.Tensor, dict]:
+                     norm: str = "l1", group: Shard = SINGLE
+                     ) -> tuple[torch.Tensor, dict]:
     """Arch "ae" loss: the reconstruction loss of :func:`generator_loss`
     plus ``w3`` times the mean squared error of ``z[:, :num_param]``
     against the normalized parameters ``y`` (the steerable code)."""
-    loss, aux = generator_loss(net_out, x, use_curl, w1, w2, relative, norm)
+    loss, aux = generator_loss(net_out, x, use_curl, w1, w2, relative, norm,
+                               group)
     loss_p = l2(z[:, :num_param], y[:, :num_param])
+    aux["loss_param"] = loss_p
+    return loss + w3 * loss_p, aux
+
+
+def jacobian_of_spatial(x: torch.Tensor, rows: Shard) -> torch.Tensor:
+    """:func:`jacobian_of` of the rank's rows of a field (haloed kernels;
+    a scalar field's gradient in plain torch)."""
+    if x.shape[-1] == 1:
+        return halo.grad_scalar_sharded(x, rows)
+    return halo.jacobian_sharded(x, rows)[0]
+
+
+def field_loss_spatial(pred: torch.Tensor, target: torch.Tensor, w1: float,
+                       w2: float, rows: Shard, relative: bool = False,
+                       norm: str = "l1") -> tuple[torch.Tensor, dict]:
+    """:func:`field_loss` of the rank's rows ``pred`` / ``target``: the
+    rank's share of it (every term too)."""
+    dist = _dist(norm)
+    ef = dist(pred - target)
+    ej = dist(jacobian_of_spatial(pred, rows)
+              - jacobian_of_spatial(target, rows))
+    loss_f, loss_j = _weighted(ef, ej, target, relative, norm, SINGLE, rows)
+    return w1 * loss_f + w2 * loss_j, {"loss_field": loss_f,
+                                       "loss_jac": loss_j}
+
+
+def generator_loss_spatial(net_out: torch.Tensor, x: torch.Tensor,
+                           use_curl: bool, w1: float, w2: float, rows: Shard,
+                           relative: bool = False, norm: str = "l1"
+                           ) -> tuple[torch.Tensor, dict]:
+    """Arch "de" loss with the grid's H (2D) / D (3D) axis sharded: the
+    rank's share."""
+    pred = halo.curl_sharded(net_out, rows) if use_curl else net_out
+    loss, aux = field_loss_spatial(pred, x, w1, w2, rows, relative, norm)
+    aux["pred"] = pred
+    return loss, aux
+
+
+def autoencoder_loss_spatial(net_out: torch.Tensor, z: torch.Tensor,
+                             x: torch.Tensor, y: torch.Tensor,
+                             use_curl: bool, num_param: int, w1: float,
+                             w2: float, w3: float, rows: Shard,
+                             relative: bool = False, norm: str = "l1"
+                             ) -> tuple[torch.Tensor, dict]:
+    """Arch "ae" loss with the grid's spatial axis sharded: the rank's
+    share (the code's error, the same on every rank, counts 1/n here)."""
+    loss, aux = generator_loss_spatial(net_out, x, use_curl, w1, w2, rows,
+                                       relative, norm)
+    loss_p = l2(z[:, :num_param], y[:, :num_param]) / rows.size
     aux["loss_param"] = loss_p
     return loss + w3 * loss_p, aux
 

@@ -49,13 +49,16 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         norm: torch.Tensor | None = None) -> torch.Tensor:
     """optax ``clip_by_global_norm`` in place: every gradient becomes
     ``g / norm * max_norm`` when the global norm reaches ``max_norm``, and
     stays as it is below it (no epsilon is added to the norm, unlike
-    ``torch.nn.utils.clip_grad_norm_``).  Returns the norm; no host sync."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    ``torch.nn.utils.clip_grad_norm_``).  ``norm``: the global norm when
+    ``grads`` are a rank's cut of the model's.  Returns the norm; no host
+    sync."""
+    if norm is None:
+        norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))

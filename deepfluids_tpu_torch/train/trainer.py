@@ -22,6 +22,15 @@ step; the 3 newest are kept).  Each save also writes ``<run>/weights.npz``,
 the flat ``tools/weights_io`` file that serving reads.  A JAX run's Orbax
 checkpoint cannot be read without jax: export its ``weights.npz`` once
 (``EXPORT_COMMAND``).
+
+Several ranks (:mod:`..parallel`; ``torchrun`` or
+``tools/launch_multihost``): ``--num_data_shards`` splits each batch over
+the data group (``--spatial_shard``: the grid's first axis instead, the
+batch replicated) and ``--num_model_shards`` the conv channels over the
+model group.  Every rank draws the same global (seed, step) batch and
+keeps its rows; the augmentation mask and the ``--nn_noise`` stream are
+drawn for the global batch.  Rank 0 writes the run's files; a checkpoint
+holds the whole model, so it resumes under any layout.
 """
 
 from __future__ import annotations
@@ -49,11 +58,14 @@ from deepfluids_tpu_torch.models import (
     GeneratorBE,
     LatentIntegrator,
     flax_init_,
+    flax_to_state_dict,
     load_flax_npz,
     noise_generator,
     rollout,
     save_flax_npz,
+    state_dict_to_flax,
 )
+from deepfluids_tpu_torch.parallel import comm, mesh
 from deepfluids_tpu_torch.train import augment, losses
 from deepfluids_tpu_torch.train.state import (
     clip_by_global_norm_,
@@ -85,29 +97,35 @@ _CACHE_DTYPES = {"float32": torch.float32, "float16": torch.float16}
 ARCHS = ("de", "ae", "nn")
 
 
-def _check_unported_model_flags(c: Config) -> None:
-    """Spatial sharding is not ported: raise rather than run unsharded in
-    its place."""
-    if c.spatial_shard:
-        raise NotImplementedError(
-            "--spatial_shard (spatial sharding) is not ported yet "
-            "(ROADMAP Queue A item 11)")
+def _check_spatial_flags(c: Config) -> None:
+    """``--spatial_shard`` applies to the field archs; the combinations
+    that ROADMAP Queue A item 11 lists as left raise rather than run
+    unsharded in silence."""
+    if not c.spatial_shard:
+        return
+    if c.arch not in ("de", "ae"):
+        raise ValueError("--spatial_shard applies to arch de/ae only")
+    left = [
+        (c.arch == "de" and c.spectral_modes > 0, "--spectral_modes"),
+        (c.arch == "de" and c.decoder == "grid" and c.grid_rank > 0,
+         "--decoder grid's basis injection (--grid_rank > 0)"),
+        (c.num_model_shards > 1, "--num_model_shards > 1"),
+    ]
+    for bad, what in left:
+        if bad:
+            raise NotImplementedError(
+                f"--spatial_shard with {what} is left of ROADMAP Queue A "
+                "item 11; not ported yet")
 
 
 def _check_unported_train_flags(c: Config) -> None:
-    """Training flags this port does not cover yet raise, naming their
-    ROADMAP item.  (--watchdog_secs and --backend_probe_secs guard the TPU
+    """Training flags this port does not cover raise, naming their ROADMAP
+    entry.  (--watchdog_secs and --backend_probe_secs guard the TPU
     runtime and are ignored: ROADMAP "Not to port".)"""
-    refused = [
-        (c.input_pipeline == "grain",
-         "--input_pipeline grain is ROADMAP Queue A item 11"),
-        (c.num_model_shards > 1 or c.num_data_shards > 1,
-         "--num_model_shards / --num_data_shards > 1 are ROADMAP Queue A "
-         "item 11"),
-    ]
-    for bad, what in refused:
-        if bad:
-            raise NotImplementedError(f"{what}; not ported yet")
+    if c.input_pipeline == "grain":
+        raise NotImplementedError(
+            "--input_pipeline grain is ROADMAP \"Not to port\" (the port "
+            "reads batches with its native pipeline)")
 
 
 def _check_arch_flags(c: Config) -> None:
@@ -166,15 +184,21 @@ class Trainer:
     """Owns the model, its optimizer and the dataset of one run."""
 
     def __init__(self, config: Config, run_dir: str | None = None,
-                 device: str | torch.device = "cuda", save_cfg: bool = True):
+                 device: str | torch.device = "cuda", save_cfg: bool = True,
+                 layout: mesh.Layout | None = None):
         _check_arch_flags(config)
-        _check_unported_model_flags(config)
+        _check_spatial_flags(config)
         if config.is_train:
             _check_unported_train_flags(config)
         self.c = config
-        self.run_dir = run_dir or prepare_run_dir(
-            config.log_dir, config.dataset, config.tag, config.load_path)
-        if save_cfg:
+        # Serving runs whole on one rank (main serves from rank 0 only).
+        self.layout = layout or (mesh.make_layout(
+            config.num_data_shards, config.num_model_shards,
+            config.spatial_shard) if config.is_train else mesh.Layout())
+        self._main = self.layout.rank == 0
+        self._check_batch_flags()
+        self.run_dir = run_dir or self._shared_run_dir()
+        if save_cfg and self._main:
             save_config(config, self.run_dir)
         self.device = torch.device(device)
         self.dtype = _DTYPES[config.compute_dtype]
@@ -202,6 +226,13 @@ class Trainer:
 
         self.model = flax_init_(self._build_model(), config.seed).to(
             self.device)
+        if self.layout.rows is not None:
+            self.model.shard_rows(self.layout.rows)
+        # the whole model's shapes, then the conv weights cut over the
+        # model group (their names)
+        self._whole_shapes = {k: torch.empty(v.shape, device="meta")
+                              for k, v in self.model.state_dict().items()}
+        self._cut = mesh.shard_channels_(self.model, self.layout.model)
         self.lr_fn = cosine_lr_schedule(config.lr_max, config.lr_min,
                                         config.max_step)
         self.step = 0      # optimizer updates done; drives the schedule
@@ -215,8 +246,37 @@ class Trainer:
         if config.nn_field_w > 0:
             # --nn_field_w trains through the frozen AE decoder.
             self._ae_trainer().model.requires_grad_(False)
-        log.info("arch=%s params=%.2fM device=%s", config.arch, sum(
-            p.numel() for p in self.model.parameters()) / 1e6, self.device)
+        log.info("arch=%s params=%.2fM device=%s layout=%s", config.arch,
+                 sum(p.numel() for p in self.model.parameters()) / 1e6,
+                 self.device, self._layout_name())
+
+    def _layout_name(self) -> str:
+        lay = self.layout
+        if lay.world == 1:
+            return "single"
+        what = "spatial" if lay.spatial else "data"
+        return (f"rank {lay.rank}/{lay.world}: {what} {lay.data.index}/"
+                f"{lay.data.size} x model {lay.model.index}/"
+                f"{lay.model.size}")
+
+    def _check_batch_flags(self) -> None:
+        """A batch split over the data group must divide by it, as the
+        reference's ``shard_batch`` requires; raised before anything is
+        written."""
+        n = self.layout.batch.size
+        if self.c.is_train and self.c.batch_size % n:
+            raise ValueError(f"batch dim {self.c.batch_size} not divisible "
+                             f"by data-axis size {n}")
+
+    def _shared_run_dir(self) -> str:
+        """Rank 0 prepares the run directory and every rank takes its
+        path (a second rank would find it made and add a timestamp)."""
+        c = self.c
+        path = [prepare_run_dir(c.log_dir, c.dataset, c.tag, c.load_path)
+                if self._main else None]
+        if self.layout.world > 1:
+            torch.distributed.broadcast_object_list(path, src=0)
+        return path[0]
 
     def _check_geometry_flags(self) -> None:
         """--res_x/y/z and --is_3d must agree with the dataset's args.txt."""
@@ -234,6 +294,12 @@ class Trainer:
                     f"{flag}={actual} (geometry comes from args.txt)")
         if (c.res_z or c.is_3d) and not m.is_3d:
             raise ValueError(f"--is_3d/--res_z given but {c.dataset} is 2D")
+        if c.spatial_shard:
+            n, axis = self.layout.data.size, m.resolution[0]
+            if axis % n:
+                raise ValueError(
+                    f"--spatial_shard needs the grid's first axis ({axis}) "
+                    f"divisible by the data-axis size ({n})")
 
     def _flip_signs(self) -> tuple[torch.Tensor, torch.Tensor] | None:
         """``--augment_flip_x``'s (channel, parameter) signs on the device
@@ -314,11 +380,16 @@ class Trainer:
         window ``a`` ``[W, B, z_num]`` and its parameters ``b`` ``[W, B,
         P]`` ("nn", whose ``--nn_noise`` stream is drawn for ``step``, the
         updates done before this one)."""
-        c = self.c
+        c, rows = self.c, self.layout.rows
         if c.arch == "de":
-            loss, aux = losses.generator_loss(
-                model(b), a, self.curl_active, c.w1, c.w2, c.relative_loss,
-                c.loss_norm)
+            if rows is not None:
+                loss, aux = losses.generator_loss_spatial(
+                    model(b), a, self.curl_active, c.w1, c.w2, rows,
+                    c.relative_loss, c.loss_norm)
+            else:
+                loss, aux = losses.generator_loss(
+                    model(b), a, self.curl_active, c.w1, c.w2,
+                    c.relative_loss, c.loss_norm, self.layout.batch)
             del aux["pred"]
             return loss, aux
         if c.arch == "ae":
@@ -327,11 +398,16 @@ class Trainer:
 
     def _ae_loss(self, model: torch.nn.Module, x: torch.Tensor,
                  y: torch.Tensor) -> tuple[torch.Tensor, dict]:
-        c, n = self.c, self.num_param
+        c, n, rows = self.c, self.num_param, self.layout.rows
         out, z = model(x)
-        loss, aux = losses.autoencoder_loss(
-            out, z, x, y, self.curl_active, n, c.w1, c.w2, c.w3,
-            c.relative_loss, c.loss_norm)
+        if rows is not None:
+            loss, aux = losses.autoencoder_loss_spatial(
+                out, z, x, y, self.curl_active, n, c.w1, c.w2, c.w3, rows,
+                c.relative_loss, c.loss_norm)
+        else:
+            loss, aux = losses.autoencoder_loss(
+                out, z, x, y, self.curl_active, n, c.w1, c.w2, c.w3,
+                c.relative_loss, c.loss_norm, self.layout.batch)
         del aux["pred"]
         if c.ae_pred_w > 0:
             # A pair batch [x_t ; x_{t+1}]: the predictor's one-step error
@@ -345,19 +421,23 @@ class Trainer:
             z_in = torch.cat([pt, zt[:, n:]], dim=-1)
             dz = model.predict(z_in, pt1 - pt)
             pl = torch.mean(torch.square(zt[:, n:] + dz - zt1[:, n:]))
+            if rows is not None:
+                pl = pl / rows.size       # the codes are whole on each rank
             loss = loss + c.ae_pred_w * pl
             aux["loss_pred"] = pl
         return loss, aux
 
     def _nn_loss(self, model: torch.nn.Module, z_seq: torch.Tensor,
                  p_seq: torch.Tensor, step: int) -> tuple[torch.Tensor, dict]:
-        c, h = self.c, self.c.nn_history
+        c, h, group = self.c, self.c.nn_history, self.layout.batch
         gen = (noise_generator(c.seed, step, z_seq.device)
                if c.nn_noise > 0 else None)
+        b = z_seq.shape[1]
         # History H > 1 seeds the rollout with the window's first H codes.
         z_pred = rollout(model, z_seq[:h] if h > 1 else z_seq[0], p_seq,
                          self.num_param, remat=c.remat_rollout,
-                         noise_std=c.nn_noise, generator=gen, history=h)
+                         noise_std=c.nn_noise, generator=gen, history=h,
+                         noise_rows=(b * group.size, b * group.index))
         loss, aux = losses.latent_window_loss(z_pred, z_seq)
         if c.nn_field_w > 0:
             # Decode nn_field_frames evenly spaced window positions (the
@@ -370,7 +450,8 @@ class Trainer:
             with torch.no_grad():
                 target = ae.apply_decode(zt)
             fl, _ = losses.field_loss(ae.apply_decode(zp), target, c.w1,
-                                      c.w2, c.relative_loss, c.loss_norm)
+                                      c.w2, c.relative_loss, c.loss_norm,
+                                      group)
             loss = loss + c.nn_field_w * fl
             aux["loss_nnfield"] = fl
         return loss, aux
@@ -382,22 +463,76 @@ class Trainer:
         field batch is mirrored first (the mask a pure function of (seed,
         updates done))."""
         if self._flip is not None:
-            mask = augment.flip_mask(self.c.seed, self.step, a.shape[0],
-                                     a.device)
-            a, b = augment.flip_x_batch(a, b, mask, *self._flip)
+            # drawn for the global batch; a rank mirrors its rows of it
+            group = self.layout.batch
+            mask = augment.flip_mask(self.c.seed, self.step,
+                                     a.shape[0] * group.size, a.device)
+            a, b = augment.flip_x_batch(a, b, mesh.local_rows(mask, group),
+                                        *self._flip)
         set_lr(self.opt, self.lr_fn(self.step))
-        self.opt.zero_grad(set_to_none=True)
-        loss, aux = self._loss_fn(self.model, a, b, self.step)
-        loss.backward()
+        loss, aux = self._backward(a, b)
         if self.c.debug_nans:
             self._raise_if_not_finite(loss)
         if self.c.grad_clip > 0:
+            norm = (torch.sqrt(mesh.grad_sq_norm(
+                self.model, self._cut, self.layout.model))
+                if self._cut else None)
             clip_by_global_norm_([p.grad for p in self.model.parameters()],
-                                 self.c.grad_clip)
+                                 self.c.grad_clip, norm)
         self.opt.step()
         self.step += 1
         aux["loss"] = loss
         return {k: v.detach() for k, v in aux.items()}
+
+    def _backward(self, a: torch.Tensor, b: torch.Tensor
+                  ) -> tuple[torch.Tensor, dict]:
+        """The rank's loss on its batch (rows), backpropagated; the
+        gradients made the whole step's over the layout."""
+        self.opt.zero_grad(set_to_none=True)
+        loss, aux = self._loss_fn(self.model, a, b, self.step)
+        loss.backward()
+        mesh.reduce_grads_(list(self.model.parameters()), self.layout)
+        return loss, aux
+
+    def _reported(self, aux: dict[str, torch.Tensor]) -> dict[str, float]:
+        """The step's losses as floats, over the data group: the mean of
+        the ranks' (data parallel) or the sum of their shares (spatial)."""
+        names = list(aux)
+        vals = torch.stack([aux[k].float().reshape(()) for k in names])
+        if self.layout.data.active:
+            comm.all_reduce_(vals, self.layout.data)
+            if not self.layout.spatial:
+                vals /= self.layout.data.size
+        return dict(zip(names, vals.tolist()))
+
+    def local_batch(self, a, b):
+        """This rank's part of a global batch ``(a, b)`` (numpy or
+        tensors): its rows (data parallel; axis 1 of an "nn" window; each
+        half of a pair batch), or its rows of the grid (spatial)."""
+        lay = self.layout
+        if lay.rows is not None:
+            return comm.split_rows(torch.as_tensor(a), lay.rows, 1), b
+        axis = 1 if self.c.arch == "nn" else 0
+        return (mesh.local_rows(a, lay.batch, axis, self.pair_mode),
+                mesh.local_rows(b, lay.batch, axis, self.pair_mode))
+
+    def _loss_and_grads(self, a, b) -> tuple[float, dict[str, np.ndarray]]:
+        """The loss of the global batch ``(a, b)`` (fields and normalized
+        params, or an "nn" window) at the current weights, and every
+        parameter's gradient, whole, by Flax key, as numpy; under any
+        layout the one-process numbers.  No update is made.  For the
+        layouts' parity checks (the tests, ``chip_smoke.py``)."""
+        a, b = self.local_batch(a, b)
+        dev = self.device
+        a = torch.as_tensor(np.asarray(a)).to(dev)
+        b = torch.as_tensor(np.asarray(b)).to(dev)
+        loss, aux = self._backward(a, b)
+        grads = {n: p.grad for n, p in self.model.named_parameters()}
+        if self._cut:
+            grads = mesh.gather_cut(grads, self._cut, self.layout.model)
+        self.opt.zero_grad(set_to_none=True)
+        return (self._reported({"loss": loss.detach()})["loss"],
+                state_dict_to_flax(grads))
 
     def _raise_if_not_finite(self, loss: torch.Tensor) -> None:
         """``--debug_nans``: raise at the first step whose loss or gradients
@@ -449,7 +584,8 @@ class Trainer:
         pdir = self.c.profile_dir or os.path.join(self.run_dir, "profile")
         os.makedirs(pdir, exist_ok=True)
         lo, hi = self._profile_range
-        path = os.path.join(pdir, f"steps_{lo}_{hi}.trace.json")
+        rank = "" if self._main else f".rank{self.layout.rank}"
+        path = os.path.join(pdir, f"steps_{lo}_{hi}{rank}.trace.json")
         prof.export_chrome_trace(path)
         log.info("profiled steps %d..%d -> %s", lo, hi, path)
         return path
@@ -457,7 +593,8 @@ class Trainer:
     def _open_tensorboard(self) -> None:
         """``--use_tensorboard``: scalars beside metrics.jsonl.  A missing
         dependency logs a warning and training goes on."""
-        if not self.c.use_tensorboard or self._tb is not None:
+        if (not self.c.use_tensorboard or self._tb is not None
+                or not self._main):
             return
         try:
             from torch.utils.tensorboard import SummaryWriter
@@ -478,14 +615,21 @@ class Trainer:
         sentinel = os.path.join(self.run_dir, ".fault_injected")
         if os.path.exists(sentinel):
             return
-        open(sentinel, "w").close()
+        if self.layout.world > 1:
+            # Every rank has looked before rank 0 writes the sentinel, so
+            # all of them die at this step (and a relaunched group passes
+            # it); the launcher then exits 17.
+            torch.distributed.barrier()
+        if self._main:
+            open(sentinel, "w").close()
         log.error("fault injection: dying at step %d without checkpointing "
                   "(exit 17)", step)
         os._exit(17)
 
     def _load_device_cache(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The whole normalized dataset on the device, once: fields in
-        ``--cache_dtype``, params in f32, in the dataset's file order."""
+        ``--cache_dtype``, params in f32, in the dataset's file order;
+        under ``--spatial_shard`` the rank's rows of each field."""
         if self._device_cache is None:
             c, m = self.c, self.manifest
             files = self.bm.ds.files
@@ -495,6 +639,8 @@ class Trainer:
                                num_threads=c.num_worker)
             x = torch.from_numpy(m.normalize_field(x).astype(np.float32))
             y = torch.from_numpy(m.normalize_params(y).astype(np.float32))
+            if self.layout.rows is not None:
+                x = comm.split_rows(x, self.layout.rows, 1)
             x = x.to(self.device, _CACHE_DTYPES[c.cache_dtype])
             log.info("staged %d fields (%.2f GB, %s) on %s", x.shape[0],
                      x.numel() * x.element_size() / 1e9, x.dtype,
@@ -506,11 +652,11 @@ class Trainer:
         """``batch(step)`` -> the (a, b) tensors of global step ``step`` on
         the device, for steps ``start + 1 .. start + num_steps`` in
         order."""
-        c = self.c
+        c, lay = self.c, self.layout
         if c.arch == "nn":
             def batch(step: int) -> tuple[torch.Tensor, torch.Tensor]:
-                z, p = self.codes.window_batch(c.batch_size, c.w_num,
-                                               step=step)
+                z, p = self.local_batch(*self.codes.window_batch(
+                    c.batch_size, c.w_num, step=step))
                 return (torch.from_numpy(z).to(self.device),
                         torch.from_numpy(p).to(self.device))
             return batch
@@ -526,15 +672,18 @@ class Trainer:
                                               c.batch_size)]
                 if self.pair_mode:
                     idx = np.concatenate([idx, self.bm.ds.successor[idx]])
+                # a rank gathers its rows (spatial: every index, its rows
+                # of each field are the cache's)
+                idx = mesh.local_rows(idx, lay.batch, pair=self.pair_mode)
                 idx = torch.from_numpy(idx).to(self.device)
                 return cache_x[idx].float(), cache_y[idx]
             return batch
         it = self.bm.batches(num_steps, start_step=start)
 
         def batch(step: int) -> tuple[torch.Tensor, torch.Tensor]:
-            x, y = next(it)
-            return (torch.from_numpy(x).to(self.device),
-                    torch.from_numpy(y).to(self.device))
+            x, y = self.local_batch(*next(it))
+            return (torch.as_tensor(x).contiguous().to(self.device),
+                    torch.as_tensor(y).to(self.device))
         return batch
 
     def train(self, num_steps: int | None = None) -> dict:
@@ -558,7 +707,8 @@ class Trainer:
         t0 = time.time()
         seen = 0
         try:
-            with open(self._metrics_path, "a") as mf:
+            with (open(self._metrics_path, "a") if self._main
+                  else open(os.devnull, "w")) as mf:
                 while seen < num_steps:
                     take = min(k, num_steps - seen)
                     self._profile_window(start + seen + take, take)
@@ -567,7 +717,7 @@ class Trainer:
                     seen += take
                     step = start + seen
                     if _crossed(c.log_step, step, take) or seen == num_steps:
-                        last = {name: float(v) for name, v in aux.items()}
+                        last = self._reported(aux)
                         rate = seen / (time.time() - t0)
                         mf.write(json.dumps({"step": step,
                                              "steps_per_sec": round(rate, 3),
@@ -615,15 +765,22 @@ class Trainer:
         of (seed, step), so params, Adam state and step are the whole
         state: a resumed run replays the uninterrupted one bit for bit."""
         path = os.path.join(self.ckpt_dir, str(self.step))
+        # the whole model (the cut convs gathered): any layout resumes it
+        shard = self.layout.model
+        params = mesh.gather_cut(self.model.state_dict(), self._cut, shard)
+        opt_state = mesh.full_optimizer_state(self.opt, self.model,
+                                              self._cut, shard)
+        if not self._main:
+            return path
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save({"params": self.model.state_dict(),
-                    "opt_state": self.opt.state_dict(), "step": self.step},
-                   os.path.join(tmp, CKPT_FILE))
+        torch.save({"params": params, "opt_state": opt_state,
+                    "step": self.step}, os.path.join(tmp, CKPT_FILE))
         shutil.rmtree(path, ignore_errors=True)
         os.replace(tmp, path)
-        save_flax_npz(self.model, os.path.join(self.run_dir, WEIGHTS_FILE))
+        save_flax_npz(self.model, os.path.join(self.run_dir, WEIGHTS_FILE),
+                      params)
         for old in self.checkpoint_steps()[:-CKPT_KEEP]:
             shutil.rmtree(os.path.join(self.ckpt_dir, str(old)))
         return path
@@ -639,8 +796,11 @@ class Trainer:
             step = steps[-1]
         state = torch.load(os.path.join(self.ckpt_dir, str(step), CKPT_FILE),
                            map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state["params"])
-        self.opt.load_state_dict(state["opt_state"])
+        shard = self.layout.model
+        self.model.load_state_dict(
+            mesh.local_state_dict(state["params"], self._cut, shard))
+        self.opt.load_state_dict(mesh.local_optimizer_state(
+            state["opt_state"], self.opt, self.model, self._cut, shard))
         for group in self.opt.param_groups:
             group["betas"] = (self.c.beta1, self.c.beta2)
         self.step = int(state["step"])
@@ -657,7 +817,8 @@ class Trainer:
     def _dump_samples(self, step: int) -> None:
         """``sample/<step>.png`` (a sample dump never stops training): "de"
         8 fields along the diagonal of the parameter box; "ae" 4 training
-        frames above their reconstructions; "nn" none."""
+        frames above their reconstructions; "nn" none.  Every rank computes
+        them (a sharded model's forward is collective); rank 0 writes."""
         try:
             m = self.manifest
             path = os.path.join(self.run_dir, "sample", f"{step:07d}.png")
@@ -667,14 +828,18 @@ class Trainer:
                 p = np.stack([m.normalize_params(
                     [np.interp(i, [0, n - 1], r) for r in m.param_ranges])
                     for i in range(n)])
-                save_image_grid(path, list(self.generate(p)), mode=mode)
+                fields = self.generate(p)
+                if self._main:
+                    save_image_grid(path, list(fields), mode=mode)
             elif self.c.arch == "ae":
                 # Own RNG stream: the prefetch worker draws training
                 # batches concurrently.
                 x, _ = self.bm.sample_batch(rng=self._dump_rng)
                 x = x[:4]
-                save_image_grid(path, list(x) + list(self.reconstruct(x)),
-                                ncol=4, mode=mode)
+                rec = self.reconstruct(x)
+                if self._main:
+                    save_image_grid(path, list(x) + list(rec), ncol=4,
+                                    mode=mode)
         except Exception as e:  # noqa: BLE001 - log and keep training
             log.warning("sample dump failed at step %d: %r", step, e)
 
@@ -691,12 +856,28 @@ class Trainer:
                 f"{WEIGHTS_FILE} (the flat tools/weights_io format). Export "
                 "it once from the JAX checkpoint, from the repo root:\n  "
                 + EXPORT_COMMAND.format(run=self.run_dir))
-        load_flax_npz(path, self.model)
+        if self._cut:
+            with np.load(path) as d:
+                flat = {k: d[k] for k in d.files}
+            self.model.load_state_dict(mesh.local_state_dict(
+                flax_to_state_dict(flat, self._whole_shapes), self._cut,
+                self.layout.model))
+        else:
+            load_flax_npz(path, self.model)
         return path
 
     def _field(self, out: torch.Tensor) -> torch.Tensor:
-        """The network's output as a field: its curl when active."""
+        """The network's output (the rank's rows under ``--spatial_shard``,
+        gathered) as a field: its curl when active."""
+        if self.layout.rows is not None:
+            out = comm.gather_rows(out, self.layout.rows, 1)
         return losses.apply_curl(out) if self.curl_active else out
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """A whole field batch -> the rank's rows under ``--spatial_shard``
+        (the encoder's input)."""
+        rows = self.layout.rows
+        return x if rows is None else comm.split_rows(x, rows, 1)
 
     def apply(self, p_norm: torch.Tensor) -> torch.Tensor:
         """Arch "de": normalized params ``[B, P]`` -> fields ``[B, *res,
@@ -719,11 +900,13 @@ class Trainer:
 
     def reconstruct(self, x: np.ndarray) -> np.ndarray:
         """Arch "ae": fields -> their reconstructions (normalized), numpy."""
-        return self._numpy_call(lambda t: self._field(self.model(t)[0]), x)
+        return self._numpy_call(
+            lambda t: self._field(self.model(self._rows(t))[0]), x)
 
     def encode(self, x: np.ndarray) -> np.ndarray:
         """Arch "ae": fields (normalized) -> codes ``[B, z_num]``, numpy."""
-        return self._numpy_call(self.model.encode, x)
+        return self._numpy_call(
+            lambda t: self.model.encode(self._rows(t)), x)
 
     def decode(self, z: np.ndarray) -> np.ndarray:
         """Arch "ae": codes -> fields (normalized), numpy."""
@@ -738,7 +921,7 @@ class Trainer:
         if self._eval_ae is None:
             ae = Trainer(load_config(self.c.ae_load_path),
                          run_dir=self.c.ae_load_path, device=self.device,
-                         save_cfg=False)
+                         save_cfg=False, layout=mesh.Layout())
             ae.restore_weights()
             self._eval_ae = ae
         return self._eval_ae

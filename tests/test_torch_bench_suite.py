@@ -60,7 +60,7 @@ def test_surface_runs_on_the_cpu(name, tmp_path):
     # the rate is the work of a call over the mean of its timed calls
     # (the record rounds to 1e-6 s and 0.1 units/s)
     mean = sum(secs) / len(secs)
-    assert rec["value"] == pytest.approx(units / mean, rel=1e-2)
+    assert rec["value"] == pytest.approx(units / mean, rel=1e-2, abs=0.05)
     assert rec["value_min"] <= rec["value"] <= rec["value_max"]
     assert (rec["backend"], rec["device"], rec["power_limit_w"]) == (
         "cpu", "cpu", None)

@@ -192,13 +192,14 @@ def test_missing_weights_names_the_export(runs, tmp_path):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    ({"is_train": False, "arch": "ae", "spatial_shard": True},
-     NotImplementedError, "Queue A item 11"),
+    # --spatial_shard with what ROADMAP Queue A item 11 lists as left
+    ({"is_train": False, "arch": "ae", "spatial_shard": True,
+      "num_model_shards": 2}, NotImplementedError, "Queue A item 11"),
     # The JAX trainer's refusal, with its message.
     ({"is_train": False, "arch": "nn", "ae_load_path": "ae",
       "decoder": "grid"}, ValueError, "applies to arch de"),
-    ({"is_train": False, "spatial_shard": True}, NotImplementedError,
-     "Queue A item 11")])
+    ({"is_train": False, "spatial_shard": True, "spectral_modes": 4},
+     NotImplementedError, "Queue A item 11")])
 def test_unported_paths_raise(runs, kw, exc, match):
     cfg = _port_cfg(runs["env"], load_path=runs["torch_run"], **kw)
     with pytest.raises(exc, match=match):

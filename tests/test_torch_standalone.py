@@ -58,7 +58,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split()[-1]) >= 41   # every module was imported
+    assert int(out.stdout.split()[-1]) >= 48   # every module was imported
 
 
 # Every tool of the port is a module of its tools subpackage, and a few run
@@ -96,7 +96,7 @@ def test_tools_run_without_jax():
 @pytest.mark.parametrize("tool", [
     "bench_suite", "eval_run", "rollout_eval", "latent_predictability",
     "solver_consistency", "regen_all", "weights_io", "make_goldens",
-    "supervise", "_record"])
+    "supervise", "_record", "launch_multihost", "dryrun"])
 def test_tool_sources_name_no_jax_import(tool):
     # Belt and braces beside the refused imports above: no tool's source
     # imports jax, flax, the JAX package or the repo-root tools, even lazily
@@ -104,6 +104,22 @@ def test_tool_sources_name_no_jax_import(tool):
     import re
 
     path = os.path.join(REPO, "deepfluids_tpu_torch", "tools", tool + ".py")
+    with open(path) as f:
+        src = f.read()
+    bad = re.findall(r"^\s*(?:from|import)\s+(jax|flax|deepfluids_tpu|tools)"
+                     r"(?:[.\s]|$)", src, flags=re.M)
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("module", ["__init__", "comm", "halo", "layers",
+                                    "mesh"])
+def test_parallel_sources_name_no_jax_import(module):
+    # The parallel layer is the JAX package's parallel/ rebuilt on
+    # torch.distributed: none of it imports jax or the JAX package.
+    import re
+
+    path = os.path.join(REPO, "deepfluids_tpu_torch", "parallel",
+                        module + ".py")
     with open(path) as f:
         src = f.read()
     bad = re.findall(r"^\s*(?:from|import)\s+(jax|flax|deepfluids_tpu|tools)"

@@ -354,12 +354,14 @@ def test_steps_per_call_rounds_up_like_jax(data_dir, tmp_path):
     assert t.step == 8
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"input_pipeline": "grain"}, "Queue A item 11"),
-    ({"num_model_shards": 2}, "Queue A item 11"),
-    ({"num_data_shards": 2}, "Queue A item 11")])
-def test_unported_train_flags_raise(data_dir, tmp_path, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("kw,exc,match", [
+    ({"input_pipeline": "grain"}, NotImplementedError, '"Not to port"'),
+    # one process cannot hold a layout of two ranks (the reference's
+    # make_mesh refuses a mesh larger than its devices)
+    ({"num_model_shards": 2}, ValueError, "mesh 1x2 needs 2 devices"),
+    ({"num_data_shards": 2}, ValueError, "mesh 2x1 needs 2 devices")])
+def test_unported_train_flags_raise(data_dir, tmp_path, kw, exc, match):
+    with pytest.raises(exc, match=match):
         Trainer(port_config(data_dir, str(tmp_path), **kw), device="cpu")
     assert not os.listdir(tmp_path), "nothing written before refusing"
 
