@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repo root, one card, no args
+    python3 chip_smoke.py readings # what sizes phase 6's K_F64, and the
+                                   # cost of the models' activation
 
 Drives the port's serving and training paths, 2D (configs #1/#2,
 smoke_pos21_size5), 3D (config #5, smoke3_vel5_buo3), config #3's liquid
@@ -41,7 +43,10 @@ exits non-zero:
      must be exact per step (zero for the liquid).  Then one f32 train
      step through the kernels against the same step through the plain ops
      (loss and every parameter's gradient), or, for the liquid, which has
-     no kernel, the card's step against the CPU's;
+     no kernel, the card's step against the CPU's: with a smooth stand-in
+     for the leaky ReLU at the parity gate, and with the leaky ReLU each
+     side against the float64 network (the card at most K_F64 times as far
+     as the CPU; the card's step with the slope 0.1 must fail that);
   7. config #4 (smoke_mov200_f400) at full width through ``main``: the
      autoencoder (filters 128, num_conv 4, z_num 16, bf16, batch 8) trains
      on a learnable synthetic moving-source set (16 scenes x 64 frames of
@@ -116,9 +121,17 @@ exits non-zero:
      2`` at global batch 16 against one rank at 16 (each rank launching the
      kernels on its 8 rows), and one batch's loss and gradients from shared
      weights under data parallelism, ``--spatial_shard`` (64 rows a rank)
-     and ``--num_model_shards 2`` against the replicated step; (d)
+     and ``--num_model_shards 2`` against the replicated step; (e) the
+     generator's knobs on ranks: on the pair, the spectral residuals (a DFT
+     distributed over the rows) and the grid decoder's basis injection
+     under ``--spatial_shard``, one batch's gradients from random gains and
+     bases, and ``KNOB_FLAGS`` through ``main``; on four gloo ranks, 2 rows
+     x 2 channels (``--spatial_shard --num_model_shards 2``): the knob
+     model's gradients, ``main``, its checkpoint restored in one process bit
+     for bit and resumed there; each gradient job with the leaky ReLU and
+     with a smooth stand-in, every kernel's rows and launches exact; (d)
      ``dryrun_multichip(2, "cuda")``; the step times of the plain loop, the
-     one-rank group and the gloo pair (printed only).
+     one-rank group, the gloo pair and the knobs' groups (printed only).
 
 Then it prints the kernels as one JSON line, the card's name and power
 limit as nvidia-smi gives them, and, last, the ``{"ok": true, ...}`` line.
@@ -146,6 +159,9 @@ TOL_KERNEL = 1e-6     # tests/test_ops.py's bar for a fused kernel
 TOL_GRAD = 1e-5       # and for a gradient
 BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative to the value, at most
 TOL_PARITY = 1e-3     # the repo's normalized-L2 parity gate
+# Phase 6's card-vs-CPU step with the leaky ReLU: the card's worst gradient
+# distance to the float64 network over the CPU's, at most.
+K_F64 = 2.0
 # Kernel-check shapes (batch + spatial).  2D: 8 is the training batch, 32
 # the serving sweep's (--test_batch_size), 512 the timed one; 4 is the
 # matched datagen's scene batch, 16 and 64 its multigrid setup's probe
@@ -1086,24 +1102,66 @@ def phase_train_parity(device, train: dict, path: MainPath) -> None:
           f"its largest entry (tol {TOL_GRAD})", flush=True)
 
 
-def phase_cpu_parity(device, train: dict, path: MainPath) -> None:
-    """A path without kernels (config #3): one f32 train step of the
-    trained run on the card (TF32 off, deterministic cuDNN) against the
-    same step on the CPU in this process: the loss within 1e-5 relative,
-    every gradient at normalized L2 < 1e-3; no FD kernel launched.  The
-    step takes the l2 loss: L1's sign flips wherever a residual is within
-    rounding of zero, which put one gradient 7.3e-4 from the CPU's.  Both
-    are also held (printed only) against the same network in float64 on
-    the CPU (the loss on its f32 output), to show which side the
-    difference is on."""
+@contextlib.contextmanager
+def activation_as(fn):
+    """The models' activation replaced by ``fn`` (None: kept): the
+    generator and the encoder look ``activation.leaky_relu`` up at call
+    time."""
+    from deepfluids_tpu_torch.models import activation
+
+    saved = activation.leaky_relu
+    activation.leaky_relu = fn or saved
+    try:
+        yield
+    finally:
+        activation.leaky_relu = saved
+
+
+def _recording(fn, branches: list, zeros: list):
+    """``fn`` (an activation) that appends each call's branch ``x >= 0`` to
+    ``branches``, on the CPU, and its count of exact zeros to ``zeros``."""
+    def act(x, slope):
+        branches.append((x.detach() >= 0).cpu())
+        zeros.append(int((x.detach() == 0).sum()))
+        return fn(x, slope)
+    return act
+
+
+def _replaying(branches: list):
+    """A leaky ReLU that takes, call by call, the branches ``branches``
+    recorded (``where(branch, x, slope * x)``, and its gradient likewise):
+    a float64 network replaying another step's kink decisions."""
+    import torch
+
+    calls = iter(branches)
+
+    def act(x, slope):
+        branch = next(calls).to(x.device)
+        return torch.where(branch, x, x * slope)
+    return act
+
+
+def cpu_parity_readings(device, train: dict, path: MainPath,
+                        act=None) -> dict:
+    """One f32 train step (l2) of ``train``'s run at ``path.parity_batch``
+    from its trained weights, on the card (TF32 off, deterministic cuDNN)
+    and on the CPU in this process, each with the models' leaky ReLU
+    (``act`` in its place when given) and with the smooth stand-in, and the
+    card's also with the slope 0.1 (the negative control); each leaky step
+    records its kink branches, and the float64 network (the card trainer's,
+    on the card with cuDNN off, the loss on its f32 output) takes that step
+    again with those branches, and once with its own.  Returns each step's
+    ``(loss, gradients)``, the branches that differ from float64's own,
+    the exact zeros each leaky step's activations met and the FD
+    launches."""
     import copy
 
     import torch
 
     from deepfluids_tpu_torch.config import load_config
+    from deepfluids_tpu_torch.models import activation
     from deepfluids_tpu_torch.ops import cuda_fd
     from deepfluids_tpu_torch.train.trainer import Trainer
-    from deepfluids_tpu_torch.utils.parity import normalized_l2
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1111,42 +1169,140 @@ def phase_cpu_parity(device, train: dict, path: MainPath) -> None:
     cfg = load_config(train["run"])
     cfg.compute_dtype, cfg.loss_norm = "float32", "l2"
     b = path.parity_batch
-    results = []
-    cuda_fd.reset_launch_counts()
-    for dev in (device, torch.device("cpu"), None):
-        if dev is None:     # the CPU trainer's network in float64
+    cpu = torch.device("cpu")
+    trainers, batches = {}, {}
+    for dev in (device, cpu):
+        t = Trainer(cfg, run_dir=train["run"], device=dev, save_cfg=False)
+        t.restore_weights()
+        trainers[dev] = t
+        batches[dev] = [torch.from_numpy(a[:b]).to(dev)
+                        for a in t.bm.step_batch(1)]
+    leaky = act or activation.leaky_relu
+
+    def step(dev, fn, f64: bool = False):
+        t = trainers[dev]
+        model = t.model
+        if f64:
             model = copy.deepcopy(t.model).double()
             model.compute_dtype = torch.float64
-        else:
-            t = Trainer(cfg, run_dir=train["run"], device=dev,
-                        save_cfg=False)
-            t.restore_weights()
-            model = t.model
-            x, y = (torch.from_numpy(a[:b]).to(dev)
-                    for a in t.bm.step_batch(1))
-        loss, _ = t._loss_fn(model, x, y)
-        loss.backward()
-        results.append((loss.item(), {n: p.grad.cpu().double().numpy()
-                                      for n, p in model.named_parameters()}))
+        # float64 through the plain CUDA convolutions (cuDNN off; flags()
+        # sets every cuDNN flag, so TF32 stays off by name)
+        no_cudnn = (torch.backends.cudnn.flags(
+            enabled=False, deterministic=True, allow_tf32=False) if f64
+            else contextlib.nullcontext())
+        with activation_as(fn), no_cudnn:
+            loss, _ = t._loss_fn(model, *batches[dev])
+            loss.backward()
+        grads = {n: p.grad.cpu().double().numpy()
+                 for n, p in model.named_parameters()}
+        t.model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    cuda_fd.reset_launch_counts()
+    out, branches, zeros = {}, {}, {}
+    for name, dev, fn in (("card", device, leaky), ("cpu", cpu, leaky),
+                          ("card_slope01", device,
+                           lambda x, s: leaky(x, 0.1)),
+                          ("f64", device, leaky)):
+        branches[name], zeros[name] = [], []
+        out[name] = step(dev, _recording(fn, branches[name], zeros[name]),
+                         f64=name == "f64")
+    for name in ("card", "cpu", "card_slope01"):
+        out[name + "_f64"] = step(device, _replaying(branches[name]),
+                                  f64=True)
+    out["card_smooth"] = step(device, activation.smooth)
+    out["cpu_smooth"] = step(cpu, activation.smooth)
     torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = False
-    (lc, gc), (lh, gh), (_, g64) = results
-    launches = dict(cuda_fd.launch_counts)
-    err = {n: normalized_l2(gc[n], gh[n]) for n in gc}
+    out["flips"] = {name: sum(int((a != w).sum()) for a, w in
+                              zip(branches[name], branches["f64"]))
+                    for name in ("card", "cpu")}
+    out["zeros"] = {name: sum(zeros[name]) for name in ("card", "cpu", "f64")}
+    out["launches"] = dict(cuda_fd.launch_counts)
+    return out
+
+
+def _worst_l2(got: dict, want: dict) -> tuple[str, float]:
+    """The parameter whose gradient is farthest from ``want``'s in
+    normalized L2, and that distance."""
+    from deepfluids_tpu_torch.utils.parity import normalized_l2
+
+    err = {n: normalized_l2(got[n], want[n]) for n in want}
     worst = max(err, key=err.get)
-    vs64 = [max(normalized_l2(g[n], g64[n]) for n in g64) for g in (gc, gh)]
-    if not (abs(lc - lh) <= 1e-5 * abs(lh) and err[worst] < TOL_PARITY
-            and launches == expected_launches({})):
-        raise AssertionError(f"card vs CPU train step: loss {lc} vs {lh}, "
-                             f"gradient L2 {err}, launches {launches}")
+    return worst, err[worst]
+
+
+def phase_cpu_parity(device, train: dict, path: MainPath) -> None:
+    """A path without kernels (config #3): the card's f32 train step (l2,
+    TF32 off, deterministic cuDNN) against the CPU's from the trained
+    weights (:func:`cpu_parity_readings`), held so that the check does not
+    hinge on where the card's bf16 training happened to stop:
+
+      (i) with the smooth stand-in (no kink), card against CPU: the loss
+          within 1e-5 relative, every gradient at normalized L2 <
+          TOL_PARITY.  This is the arithmetic the check holds;
+     (ii) with the models' leaky ReLU, each side against the float64
+          network taking that side's kink branches: the card's worst
+          gradient L2 at most K_F64 times the CPU's (the CPU's path is the
+          one the tests hold against JAX).  A pre-activation within
+          rounding of zero takes either branch, and one such point at a
+          coarse stage moves a conv kernel's gradient by ~1e-3 (normalized
+          L2), so the distance to float64's own branches (printed, with
+          the count of branches that differ) and card against CPU directly
+          (5.47e-4 at one trained state, 1.71e-3 at another, on an H100)
+          move with the trained state; they are printed, not held.
+          Negative control: the card's step with the slope 0.1 must fail
+          (ii).
+
+    No FD kernel is launched (the path has none).  The step takes the l2
+    loss: L1's sign flips wherever a residual is within rounding of zero."""
+    r = cpu_parity_readings(device, train, path)
+    (lc, gc), (lh, gh), (_, g64) = r["card"], r["cpu"], r["f64"]
+    (ls, gs), (lhs, ghs) = r["card_smooth"], r["cpu_smooth"]
+    smooth = _worst_l2(gs, ghs)
+    card64 = _worst_l2(gc, r["card_f64"][1])
+    cpu64 = _worst_l2(gh, r["cpu_f64"][1])
+    ratio = card64[1] / cpu64[1]
+    control = _worst_l2(r["card_slope01"][1],
+                        r["card_slope01_f64"][1])[1] / cpu64[1]
+    own = (_worst_l2(gc, g64), _worst_l2(gh, g64))
+    direct = _worst_l2(gc, gh)
+    if not (abs(ls - lhs) <= 1e-5 * abs(lhs) and smooth[1] < TOL_PARITY):
+        raise AssertionError(f"(i) card vs CPU with the smooth stand-in: "
+                             f"loss {ls} vs {lhs}, worst gradient L2 "
+                             f"{smooth}")
+    if abs(ls - lc) <= 1e-5 * abs(lc):
+        raise AssertionError(f"the smooth stand-in is not live: loss {ls} "
+                             f"vs the leaky {lc}")
+    if not (abs(lc - lh) <= 1e-5 * abs(lh) and ratio <= K_F64):
+        raise AssertionError(f"(ii) against float64 on the same branches: "
+                             f"card {card64}, CPU {cpu64}, ratio {ratio} "
+                             f"(tol {K_F64}); loss {lc} vs {lh}")
+    if control <= K_F64:
+        raise AssertionError(f"(ii)'s negative control passed: the card's "
+                             f"step with the slope 0.1 is {control} times "
+                             f"the CPU's distance to float64")
+    if r["launches"] != expected_launches({}):
+        raise AssertionError(f"card vs CPU: launches {r['launches']}")
     print(f"phase 6 parity {path.name.upper()}: ok  one f32 train step (l2) "
-          f"at the flagship width, batch {b}, card (TF32 off, deterministic "
-          f"cuDNN) vs CPU: loss {lc!r} vs {lh!r} (relative "
-          f"{abs(lc - lh) / abs(lh):.2e}, tol 1e-5); every gradient within "
-          f"normalized L2 {err[worst]:.2e} ({worst}; tol {TOL_PARITY}); "
-          f"against the float64 network, worst gradient L2 card "
-          f"{vs64[0]:.2e}, CPU {vs64[1]:.2e}; no FD kernel (the path has "
-          f"none)", flush=True)
+          f"at the flagship width, batch {path.parity_batch}, card (TF32 "
+          f"off, deterministic cuDNN) vs CPU from the trained weights: (i) "
+          f"smooth stand-in: loss {ls!r} vs {lhs!r} (relative "
+          f"{abs(ls - lhs) / abs(lhs):.2e}, tol 1e-5), worst gradient L2 "
+          f"{smooth[1]:.2e} ({smooth[0]}; tol {TOL_PARITY}); (ii) leaky "
+          f"ReLU against the float64 network on each side's branches: card "
+          f"{card64[1]:.2e} ({card64[0]}), CPU {cpu64[1]:.2e} "
+          f"({cpu64[0]}), ratio {ratio:.3f} (tol {K_F64}); loss {lc!r} vs "
+          f"{lh!r}; exact zeros met by the activations (where the "
+          f"gradient is 1): card {r['zeros']['card']}, CPU "
+          f"{r['zeros']['cpu']}, float64 {r['zeros']['f64']}; on float64's "
+          f"own branches (card {r['flips']['card']}, CPU "
+          f"{r['flips']['cpu']} branches differ): card {own[0][1]:.2e} "
+          f"({own[0][0]}), CPU {own[1][1]:.2e} ({own[1][0]}); card vs CPU "
+          f"directly (formerly held at {TOL_PARITY}) {direct[1]:.2e} "
+          f"({direct[0]}); negative control, the card's slope 0.1: ratio "
+          f"{control:.1f}, fails (ii) as it must; no FD kernel (the path "
+          f"has none)", flush=True)
 
 
 def make_mov_dataset(root: str, path: LatentPath) -> tuple[str, np.ndarray]:
@@ -3151,11 +3307,20 @@ def phase_tools(device, root: str, card: str, train: dict,
 PAR_SHARDS = (2, 4, 8)    # blocks of the simulated shards (a)
 PAR_STEPS = 3             # steps of each run through main (b, c)
 PAR_TIMED = 20            # timed train steps of each loop
+PAR_TIMED_KNOBS = 5       # ... and of each loop of the knobs (e)
 TOL_PAR_LOSS = 1e-5       # relative, a run on ranks vs the plain loop
+# (e): the generator's knobs on ranks, each model's flags: the spectral
+# residuals alone, the grid decoder's basis injection alone, and every knob
+# of the knob path
+PAR_KNOBS = {"spectral": ("--spectral_modes", "8"),
+             "grid": ("--decoder", "grid", "--grid_levels", "4",
+                      "--grid_features", "4", "--grid_rank", "8"),
+             "knobs": KNOB_FLAGS}
+SPATIAL = ("--spatial_shard", "true")
 # One rank of phase 12's groups: the jobs of a spec file, each a list of
 # main's flags and a mode ("main": main.cli; "grads": the loss and the
 # gradients of one global batch from the run's weights.npz, with cuDNN off,
-# and with "smooth" the leaky ReLU swapped for smooth_act's formula;
+# and with "smooth" the models' leaky ReLU swapped for the smooth stand-in;
 # "timed": ms per train step), with the batch dims and the rows (axis 1) of
 # each kernel's input and the launches of each job; rank 0 writes the
 # gradients.
@@ -3166,9 +3331,10 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 from deepfluids_tpu_torch import main as entry, parallel
 from deepfluids_tpu_torch.config import get_config
+from deepfluids_tpu_torch.models import activation
 from deepfluids_tpu_torch.ops import cuda_fd
 from deepfluids_tpu_torch.train.trainer import Trainer
-leaky = torch.nn.functional.leaky_relu
+leaky = activation.leaky_relu
 seen, rows = set(), {}
 launch = cuda_fd._launch
 def recording(name, entry_, ins, outs):
@@ -3183,9 +3349,7 @@ for job in json.load(open(sys.argv[1])):
     cuda_fd.reset_launch_counts()
     seen.clear()
     rows.clear()
-    torch.nn.functional.leaky_relu = (
-        (lambda x, s=0.2: x * (0.6 + 0.4 * torch.tanh(x)))
-        if job.get("smooth") else leaky)
+    activation.leaky_relu = activation.smooth if job.get("smooth") else leaky
     out = {"name": job["name"]}
     if job["mode"] == "main":
         entry.cli(job["argv"] + ["--device", "cuda"])
@@ -3219,14 +3383,6 @@ for job in json.load(open(sys.argv[1])):
 print("PAR_RESULT " + json.dumps({"rank": rank, "jobs": results}),
       flush=True)
 """
-
-
-def smooth_act(x, negative_slope=0.2):
-    """A smooth stand-in for the leaky ReLU (no kink; the formula of
-    PAR_WORKER's "smooth" jobs)."""
-    import torch
-
-    return x * (0.6 + 0.4 * torch.tanh(x))
 
 
 def par_simulated(device) -> dict:
@@ -3353,15 +3509,16 @@ def _smooth_errors(got: dict, want: dict) -> tuple[str, float]:
     """Gradients against the one-process ones, both with the smooth
     activation: the parameter with the largest error relative to its own
     largest entry, and that error.  conv_out's bias lies in the curl's null
-    space (its gradient is rounding noise), so it is held against the
+    space (its gradient is rounding noise), and a spectral gain's gradient
+    is a cancelling sum over the spectrum, so both are held against the
     largest entry of all."""
     if set(got) != set(want):
         raise AssertionError(f"gradient keys {sorted(got)} != "
                              f"{sorted(want)}")
     scale = max(float(np.abs(w).max()) for w in want.values())
     errs = {k: float(np.abs(got[k] - w).max()) / (
-        scale if k.endswith("conv_out/bias") else float(np.abs(w).max()))
-        for k, w in want.items()}
+        scale if k.endswith(("conv_out/bias", "gain_re", "gain_im"))
+        else float(np.abs(w).max())) for k, w in want.items()}
     worst = max(errs, key=errs.get)
     return worst, errs[worst]
 
@@ -3385,6 +3542,177 @@ def _par_losses(logs: str, tag: str) -> list[float]:
         logs, f"{PATH_2D.dataset}_{tag}"))]
 
 
+def _check_grads(name: str, res: list[dict], path: str, ref: tuple,
+                 smooth: bool, one_step: dict) -> tuple:
+    """A grads job of ``res`` (every rank's results; the gradients rank 0
+    wrote to ``path``) against its one-process reference ``(loss,
+    gradients)``: the loss within
+    TOL_PAR_LOSS, the gradients at rtol / atol TOL_GRAD (leaky) or within
+    TOL_GRAD of each parameter's largest entry (smooth), one step's
+    launches on every rank.  Returns the errors."""
+    with np.load(path) as d:
+        got = {k: d[k] for k in d.files}
+    loss, want = ref
+    errs = (_smooth_errors(got, want) if smooth
+            else _grad_errors(got, want)[:2])
+    rel = abs(res[0][name]["loss"] - loss) / abs(loss)
+    bad = [r for r, x in enumerate(res) if x[name]["launches"] != one_step]
+    if bad or errs[1] > TOL_GRAD or rel > TOL_PAR_LOSS:
+        raise AssertionError(f"(e) {name}: loss {res[0][name]['loss']} vs "
+                             f"{loss}, gradient error {errs}, launches "
+                             f"{[x[name]['launches'] for x in res]}, want "
+                             f"{one_step} each")
+    return rel, *errs
+
+
+def par_knobs(device, root: str, card: str, ctx: dict) -> dict:
+    """(e) The generator's knobs on ranks at the flagship width (f32, l2,
+    TF32 off; gradients with cuDNN off): on the gloo pair, the spectral
+    residuals and the basis injection under --spatial_shard (one batch's
+    gradients from random gains and bases, leaky and smooth, against this
+    process's) and the knob path (KNOB_FLAGS) through main; on four gloo
+    ranks, rows x channels (--spatial_shard --num_model_shards 2, 2 x 2):
+    the knob model's gradients, main, its checkpoint restored in one
+    process bit for bit and resumed there for a step.  The kernels read
+    the rows of their rank's block, every rank launches one step's kernels
+    a step.  Returns the launches of each path and the step times."""
+    from deepfluids_tpu_torch.config import get_config
+    from deepfluids_tpu_torch.main import main
+    from deepfluids_tpu_torch.models import state_dict_to_flax
+    from deepfluids_tpu_torch.ops import cuda_fd
+    from deepfluids_tpu_torch.train.trainer import Trainer
+
+    pair, refs, rows = ctx["pair"], ctx["refs"], ctx["rows"]
+    one_step, logs, data_dir = ctx["one_step"], ctx["logs"], ctx["data_dir"]
+    main_step = {k: PAR_STEPS * v for k, v in one_step.items()}
+
+    def check(name: str, res: list[dict], ref: tuple) -> tuple:
+        return _check_grads(name, res, os.path.join(root, f"par_{name}.npz"),
+                            ref, name.startswith("ssp"), one_step)
+
+    def held_rows(res: list[dict], names: list[str], block) -> None:
+        for r, x in enumerate(res):
+            for name in names:
+                if x[name]["rows"] != rows[block(r)]:
+                    raise AssertionError(
+                        f"(e) {name} rank {r}: the kernels' inputs had "
+                        f"{x[name]['rows']} rows, want {rows[block(r)]}")
+
+    errs = {}
+    for name in ("spectral", "grid"):
+        _, leaky, smooth = refs[name]
+        errs[f"sp_{name}"] = check(f"sp_{name}", pair, leaky)
+        errs[f"ssp_{name}"] = check(f"ssp_{name}", pair, smooth)
+    if any(x["main_knobs"]["launches"] != main_step for x in pair):
+        raise AssertionError(f"(e) main_knobs launched "
+                             f"{[x['main_knobs']['launches'] for x in pair]}"
+                             f", want {main_step} a rank")
+    held_rows(pair, ["sp_spectral", "sp_grid", "ssp_spectral", "ssp_grid",
+                     "main_knobs"], lambda r: r)
+    rel_pair = ctx["same"](_par_losses(logs, "par_gloo_knobs"),
+                           ctx["plain"], "(e) the knob path on the pair")
+    print(f"phase 12 (e) the knobs on the gloo pair, --spatial_shard: ok  "
+          f"one f32 batch of 8 from random gains and bases, cuDNN off: "
+          + "; ".join(f"{n} loss within {e[0]:.2e}, gradients "
+                      + (f"within {e[2]:.2e} of the largest entry ({e[1]})"
+                         if n.startswith("ssp") else
+                         f"worst excess {e[2]:.2e} ({e[1]})")
+                      for n, e in errs.items())
+          + f"; main with {' '.join(KNOB_FLAGS)} --spatial_shard true: "
+          f"{PAR_STEPS} losses within {rel_pair:.2e} of the plain loop's, "
+          f"launches {main_step} a rank; the kernels read "
+          f"{pair[0]['sp_spectral']['rows']} rows on rank 0 and "
+          f"{pair[1]['sp_spectral']['rows']} on rank 1", flush=True)
+
+    # four gloo ranks: 2 rows x 2 channels
+    t0 = time.perf_counter()
+    quad_flags = list(KNOB_FLAGS) + list(SPATIAL) + ["--num_model_shards",
+                                                     "2"]
+    quad = _par_spawn(4, "gloo", [
+        {"name": f"{pre}sptp_knobs", "mode": "grads", "smooth": pre == "s",
+         "run_dir": ctx["runs"][f"par_{pre}sptp_knobs"],
+         "batch": ctx["batch"],
+         "out": os.path.join(root, f"par_{pre}sptp_knobs.npz"),
+         "argv": _par_flags(data_dir, logs, f"par_g_{pre}sptp", 8, 1)
+         + quad_flags} for pre in ("", "s")] + [
+        {"name": "main_quad", "mode": "main",
+         "argv": _par_flags(data_dir, logs, "par_quad", 8, PAR_STEPS)
+         + quad_flags},
+        {"name": "timed_quad", "mode": "timed", "steps": PAR_TIMED_KNOBS,
+         "run_dir": ctx["runs"]["par_time_knobs4"],
+         "argv": _par_flags(data_dir, logs, "par_t4k", 8, 1000)
+         + quad_flags}], os.path.join(root, "par_quad.json"),
+        {"NVIDIA_TF32_OVERRIDE": "0"})
+    quad_s = time.perf_counter() - t0
+    _, leaky, smooth = refs["knobs"]
+    errs4 = {"sptp_knobs": check("sptp_knobs", quad, leaky),
+             "ssptp_knobs": check("ssptp_knobs", quad, smooth)}
+    if any(x["main_quad"]["launches"] != main_step for x in quad):
+        raise AssertionError(f"(e) main_quad launched "
+                             f"{[x['main_quad']['launches'] for x in quad]}"
+                             f", want {main_step} a rank")
+    held_rows(quad, ["sptp_knobs", "ssptp_knobs", "main_quad"],
+              lambda r: r // 2)
+    rel_quad = ctx["same"](_par_losses(logs, "par_quad"), ctx["plain"],
+                           "(e) the knob path on 2 x 2 ranks")
+    # the 2 x 2 checkpoint in one process: bit for bit, then a step more
+    run = os.path.join(logs, f"{PATH_2D.dataset}_par_quad")
+    one_flags = _par_flags(data_dir, logs, "par_quad", 8, PAR_STEPS + 1)
+    one_flags += list(KNOB_FLAGS)
+    t = Trainer(get_config(one_flags), run_dir=run, device=device,
+                save_cfg=False)
+    if t.restore_checkpoint() != PAR_STEPS:
+        raise AssertionError("(e) the 2 x 2 checkpoint's step")
+    with np.load(os.path.join(run, "weights.npz")) as d:
+        written = {k: d[k] for k in d.files}
+    restored = state_dict_to_flax(t.model.state_dict())
+    if set(written) != set(restored) or any(
+            not np.array_equal(written[k], v) for k, v in restored.items()):
+        raise AssertionError("(e) the 2 x 2 checkpoint restored in one "
+                             "process != its weights.npz")
+    cuda_fd.reset_launch_counts()
+    main(get_config(one_flags + ["--load_path", run]), device=device)
+    resumed = dict(cuda_fd.launch_counts)
+    rows_run = _metrics(run)
+    if [r["step"] for r in rows_run] != list(range(1, PAR_STEPS + 2)) or (
+            not np.isfinite(rows_run[-1]["loss"])) or resumed != one_step:
+        raise AssertionError(f"(e) resumed in one process: metrics "
+                             f"{rows_run}, launches {resumed}")
+    times = {"gloo2_knobs_ms": max(x["timed_knobs"]["ms"] for x in pair),
+             "gloo4_knobs_ms": max(x["timed_quad"]["ms"] for x in quad)}
+    print(f"phase 12 (e) the knobs on 4 gloo ranks, 2 rows x 2 channels: "
+          f"ok  one f32 batch of 8 ({' '.join(KNOB_FLAGS)}, random gains and "
+          f"bases, cuDNN off): "
+          + "; ".join(f"{n} loss within {e[0]:.2e}, gradients "
+                      + (f"within {e[2]:.2e} of the largest entry ({e[1]})"
+                         if n.startswith("ssp") else
+                         f"worst excess {e[2]:.2e} ({e[1]})")
+                      for n, e in errs4.items())
+          + f"; main {PAR_STEPS} steps: losses within {rel_quad:.2e} of the "
+          f"plain loop's, launches {main_step} a rank; the kernels read "
+          f"{[x['main_quad']['rows']['curl2d_fused'] for x in quad]} rows "
+          f"(ranks 0-3); its checkpoint restored in one process bit for "
+          f"bit and resumed to step {PAR_STEPS + 1} (loss "
+          f"{rows_run[-1]['loss']:.5f}, launches {resumed}); the group's "
+          f"processes {quad_s:.2f} s", flush=True)
+    print(f"phase 12 (e) step times [{card}]: knob path f32 train step "
+          f"(recorded, not targets): two gloo ranks --spatial_shard batch 8 "
+          f"{times['gloo2_knobs_ms']:.2f} ms; four gloo ranks 2 rows x 2 "
+          f"channels batch 8 {times['gloo4_knobs_ms']:.2f} ms", flush=True)
+
+    def summed(res: list[dict], name: str) -> dict:
+        return {k: sum(x[name]["launches"][k] for x in res)
+                for k in one_step}
+
+    return {"launches": {"sp_spectral_grads_2d": summed(pair, "sp_spectral"),
+                         "sp_grid_grads_2d": summed(pair, "sp_grid"),
+                         "sp_knobs_2d": summed(pair, "main_knobs"),
+                         "sptp_knobs_grads_2d": summed(quad, "sptp_knobs"),
+                         "sptp_knobs_2d": summed(quad, "main_quad"),
+                         "sptp_resume_2d": resumed},
+            "times": times}
+
+
 def phase_parallel(device, root: str, card: str, train: dict) -> dict:
     """Phase 12: the parallel layer on the card.  Returns the launches of
     each of its paths and the step times."""
@@ -3394,6 +3722,7 @@ def phase_parallel(device, root: str, card: str, train: dict) -> dict:
 
     from deepfluids_tpu_torch.config import get_config
     from deepfluids_tpu_torch.main import main
+    from deepfluids_tpu_torch.models import activation
     from deepfluids_tpu_torch.ops import cuda_fd
     from deepfluids_tpu_torch.tools import dryrun
     from deepfluids_tpu_torch.train.trainer import Trainer
@@ -3451,13 +3780,33 @@ def phase_parallel(device, root: str, card: str, train: dict) -> dict:
     floor = _grad_errors({k: (halves[0][k] + halves[1][k]) / 2
                           for k in want_grads}, want_grads)
     gmax = max(float(np.abs(g).max()) for g in want_grads.values())
-    leaky = torch.nn.functional.leaky_relu
-    torch.nn.functional.leaky_relu = smooth_act
-    try:
+    with activation_as(activation.smooth):
         smooth_loss, smooth_grads = ref._loss_and_grads(a, b)
-    finally:
-        torch.nn.functional.leaky_relu = leaky
+    # (e)'s references: each knob model from seeded random gains and bases
+    # (zero at init), its leaky and smooth gradients in this process
+    knob_refs = {}
+    gen = torch.Generator().manual_seed(10)
+    for name, extra in PAR_KNOBS.items():
+        kref = Trainer(get_config(_par_flags(data_dir, logs,
+                                             f"par_ref_{name}", 8, 1)
+                                  + list(extra)), device=device)
+        with torch.no_grad():
+            for n, p in kref.model.named_parameters():
+                if n.split(".")[-1].startswith(("gain_", "basis_")):
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+        kref.save_checkpoint()
+        leaky_ref = kref._loss_and_grads(a, b)
+        with activation_as(activation.smooth):
+            knob_refs[name] = (kref.run_dir, leaky_ref,
+                               kref._loss_and_grads(a, b))
     torch.backends.cudnn.enabled = True
+    for name, (loss_l, loss_s) in {
+            "plain": (want_loss, smooth_loss),
+            **{k: (v[1][0], v[2][0]) for k, v in knob_refs.items()}}.items():
+        if abs(loss_s - loss_l) <= TOL_PAR_LOSS * abs(loss_l):
+            raise AssertionError(f"the smooth stand-in is not live ({name}):"
+                                 f" loss {loss_s} vs the leaky {loss_l}")
+    plain_knobs = run_main("par_plain_knobs", 8, KNOB_FLAGS)
     prep_s = time.perf_counter() - t0
     timed_jobs = {}
     for tag in ("par_time1", "par_time2", "par_sp", "par_tp", "par_dp",
@@ -3465,6 +3814,17 @@ def phase_parallel(device, root: str, card: str, train: dict) -> dict:
         run = os.path.join(root, "par_runs", tag)
         os.makedirs(run)
         shutil.copy(os.path.join(ref.run_dir, "weights.npz"), run)
+        timed_jobs[tag] = run
+    for tag, name in (("par_sp_spectral", "spectral"),
+                      ("par_ssp_spectral", "spectral"),
+                      ("par_sp_grid", "grid"), ("par_ssp_grid", "grid"),
+                      ("par_time_knobs2", "knobs"),
+                      ("par_time_knobs4", "knobs"),
+                      ("par_sptp_knobs", "knobs"),
+                      ("par_ssptp_knobs", "knobs")):
+        run = os.path.join(root, "par_runs", tag)
+        os.makedirs(run)
+        shutil.copy(os.path.join(knob_refs[name][0], "weights.npz"), run)
         timed_jobs[tag] = run
     # the plain loop's step time, in this process
     plain_t = Trainer(get_config(_par_flags(data_dir, logs, "par_tp0", 8,
@@ -3525,6 +3885,15 @@ def phase_parallel(device, root: str, card: str, train: dict) -> dict:
          "argv": _par_flags(data_dir, logs, f"par_g_{pre}{name}", 8, 1)
          + flags}
         for pre in ("", "s") for name, flags in layouts.items()]
+    # (e) on the pair: the spectral and the grid model under
+    # --spatial_shard (leaky and smooth), and the knob path through main
+    knob_jobs = [
+        {"name": f"{pre}sp_{name}", "mode": "grads", "smooth": pre == "s",
+         "run_dir": timed_jobs[f"par_{pre}sp_{name}"], "batch": batch_npz,
+         "out": os.path.join(root, f"par_{pre}sp_{name}.npz"),
+         "argv": _par_flags(data_dir, logs, f"par_g_{pre}sp_{name}", 8, 1)
+         + list(PAR_KNOBS[name]) + list(SPATIAL)}
+        for pre in ("", "s") for name in ("spectral", "grid")]
     pair = _par_spawn(2, "gloo", [
         {"name": "main", "mode": "main",
          "argv": _par_flags(data_dir, logs, "par_gloo", 16, PAR_STEPS)
@@ -3533,7 +3902,16 @@ def phase_parallel(device, root: str, card: str, train: dict) -> dict:
         {"name": "timed", "mode": "timed", "steps": PAR_TIMED,
          "run_dir": timed_jobs["par_time2"],
          "argv": _par_flags(data_dir, logs, "par_t2", 16, 1000)
-         + dp_flags}], os.path.join(root, "par_gloo.json"), no_tf32)
+         + dp_flags},
+        *knob_jobs,
+        {"name": "main_knobs", "mode": "main",
+         "argv": _par_flags(data_dir, logs, "par_gloo_knobs", 8, PAR_STEPS)
+         + list(KNOB_FLAGS) + list(SPATIAL)},
+        {"name": "timed_knobs", "mode": "timed", "steps": PAR_TIMED_KNOBS,
+         "run_dir": timed_jobs["par_time_knobs2"],
+         "argv": _par_flags(data_dir, logs, "par_t2k", 8, 1000)
+         + list(KNOB_FLAGS) + list(SPATIAL)}],
+        os.path.join(root, "par_gloo.json"), no_tf32)
     rel_c = same(_par_losses(logs, "par_gloo"), plain16,
                  "(c) two gloo ranks at global batch 16")
     for r, res in enumerate(pair):
@@ -3630,13 +4008,20 @@ def phase_parallel(device, root: str, card: str, train: dict) -> dict:
           f"--num_model_shards 2 first-step loss within {tp_vs_dp:.2e} of "
           f"DP's; wall {time.perf_counter() - t1:.2f} s", flush=True)
 
+    knobs = timed("phase 12 (e)", par_knobs, device, root, card, {
+        "pair": pair, "refs": knob_refs, "batch": batch_npz, "logs": logs,
+        "data_dir": data_dir, "runs": timed_jobs, "plain": plain_knobs,
+        "rows": sp_rows, "one_step": one_step, "same": same})
+    launches.update(knobs["launches"])
+
     # (d) the dry run's stages in two ranks on the card
     t1 = time.perf_counter()
     lines = dryrun.dryrun_multichip(2, "cuda")
     print(f"phase 12 (d) dryrun_multichip(2, 'cuda'): ok  {len(lines)} "
           f"stages; wall {time.perf_counter() - t1:.2f} s", flush=True)
     times = {"plain_ms": plain_ms, "nccl1_ms": nccl["timed"]["ms"],
-             "gloo2_ms": max(r["timed"]["ms"] for r in pair)}
+             "gloo2_ms": max(r["timed"]["ms"] for r in pair),
+             **knobs["times"]}
     print(f"phase 12 step times [{card}]: flagship 2D f32 train step "
           f"(recorded, not targets): plain loop batch 8 "
           f"{times['plain_ms']:.2f} ms; one-rank NCCL group batch 8 "
@@ -3734,13 +4119,20 @@ def run(device, card: str) -> list[dict]:
         for tag, counts in tools["launches"].items():
             by_path[f"tools_{tag}"] = counts[name]
         # Phase 12: the simulated shards (sp_sim_*), the one-rank NCCL run
-        # (dp_nccl_2d) and the two gloo ranks' runs (dp_2d, and one batch
-        # each of dp_grads_2d, sp_grads_2d, tp_grads_2d), summed over ranks.
+        # (dp_nccl_2d), the two gloo ranks' runs (dp_2d, and one batch
+        # each of dp_grads_2d, sp_grads_2d, tp_grads_2d) and the knobs'
+        # (e): on the pair one batch each of sp_spectral_grads_2d and
+        # sp_grid_grads_2d and the knob path through main (sp_knobs_2d), on
+        # 2 x 2 ranks one batch (sptp_knobs_grads_2d), main
+        # (sptp_knobs_2d) and its resume in one process (sptp_resume_2d);
+        # summed over ranks.
         for tag, counts in par["launches"].items():
             by_path[tag] = counts[name]
         par_paths = (("sp_sim_3d",) if nd == 3 else (
             "sp_sim_2d", "dp_nccl_2d", "dp_2d", "dp_grads_2d",
-            "sp_grads_2d", "tp_grads_2d"))
+            "sp_grads_2d", "tp_grads_2d", "sp_spectral_grads_2d",
+            "sp_grid_grads_2d", "sp_knobs_2d", "sptp_knobs_grads_2d",
+            "sptp_knobs_2d", "sptp_resume_2d"))
         if any(by_path[p] == 0 for p in par_paths):
             raise AssertionError(f"{name} never launched on a phase 12 "
                                  f"path: {by_path}")
@@ -3784,6 +4176,74 @@ def run(device, card: str) -> list[dict]:
     return kernels
 
 
+def activation_readings(device, card: str) -> None:
+    """``python3 chip_smoke.py readings``: what sizes K_F64 and what the
+    models' activation costs, on the card.  Phase 6 LIQUID's readings
+    (:func:`cpu_parity_readings`) at two trained states: the run trained
+    with the models' activation and the run trained with ``F.leaky_relu``
+    (the slope at exactly 0), each read with the activation it trained
+    with; then a flagship 2D bf16 batch-8 train step with each activation:
+    its kernel launches and kernel time (profiler) and its device ms (CUDA
+    events, alternated)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepfluids_tpu_torch.config import get_config
+    from deepfluids_tpu_torch.train.trainer import Trainer
+
+    acts = {"the models' activation": None, "F.leaky_relu": F.leaky_relu}
+    with tempfile.TemporaryDirectory(prefix="chip_readings_") as root:
+        for k, (label, act) in enumerate(acts.items()):
+            sub = os.path.join(root, str(k))
+            os.makedirs(sub)
+            with activation_as(act):
+                train = phase_train(device, sub, PATH_LIQ)
+                r = cpu_parity_readings(device, train, PATH_LIQ, act)
+            g = {n: v[1] for n, v in r.items() if isinstance(v, tuple)}
+            same = {n: _worst_l2(g[n], g[n + "_f64"])
+                    for n in ("card", "cpu", "card_slope01")}
+            own = {n: _worst_l2(g[n], g["f64"]) for n in ("card", "cpu")}
+            print(f"readings LIQUID trained with {label} [{card}]: against "
+                  f"float64 on each side's branches card {same['card'][1]:.4e}"
+                  f" ({same['card'][0]}), CPU {same['cpu'][1]:.4e} "
+                  f"({same['cpu'][0]}), ratio "
+                  f"{same['card'][1] / same['cpu'][1]:.4f}; on float64's own "
+                  f"branches card {own['card'][1]:.4e} ({own['card'][0]}), "
+                  f"CPU {own['cpu'][1]:.4e} ({own['cpu'][0]}), ratio "
+                  f"{own['card'][1] / own['cpu'][1]:.4f}; branches that "
+                  f"differ from float64's {r['flips']}; exact zeros "
+                  f"{r['zeros']}; card vs CPU "
+                  f"{_worst_l2(g['card'], g['cpu'])[1]:.4e}; smooth card vs "
+                  f"CPU {_worst_l2(g['card_smooth'], g['cpu_smooth'])[1]:.4e}"
+                  f"; slope 0.1 control ratio "
+                  f"{same['card_slope01'][1] / same['cpu'][1]:.1f}",
+                  flush=True)
+        data_dir = make_train_dataset(root, PATH_2D)
+        t = Trainer(get_config([
+            "--is_train", "True", "--arch", "de", "--data_dir", data_dir,
+            "--dataset", PATH_2D.dataset, "--log_dir",
+            os.path.join(root, "logs"), "--batch_size", "8",
+            "--compute_dtype", "bfloat16", "--device_data_cache", "true",
+            "--filters", str(FLAGSHIP["filters"]), "--num_conv",
+            str(FLAGSHIP["num_conv"])]), device=device)
+        cx, cy = t._load_device_cache()
+        x, y = cx[:8].float(), cy[:8]
+        steps = {}
+        for label, act in acts.items():
+            def step(act=act):
+                with activation_as(act):
+                    t._train_step(x, y)
+            steps[label] = step
+            profile_line(f"2D train step bf16 batch 8, {label} [{card}]",
+                         step, cuda_ms(step, 20))
+        new, old, runs = alternated(steps["F.leaky_relu"],
+                                    steps["the models' activation"], 20)
+        print(f"readings 2D train step bf16 batch 8 [{card}]: device ms the "
+              f"models' activation {new:.3f}, F.leaky_relu {old:.3f} "
+              f"(F, models', models', F: {', '.join(f'{v:.3f}' for v in runs)})",
+              flush=True)
+
+
 def main() -> None:
     # The smoke runs on one card: show CUDA only the first visible one, so
     # the device count reported last is the card the run used.
@@ -3795,6 +4255,10 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA card")
     card = card_line()
+    if sys.argv[1:] == ["readings"]:
+        phase_build(card)
+        activation_readings(torch.device("cuda", 0), card)
+        return
     kernels = run(torch.device("cuda", 0), card)
     print(json.dumps({"kernels": kernels}))
     count = torch.cuda.device_count()

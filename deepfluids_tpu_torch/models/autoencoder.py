@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deepfluids_tpu_torch.models import activation
 from deepfluids_tpu_torch.models.generator import (
     ACT_SLOPE,
     GeneratorBE,
@@ -121,7 +122,7 @@ class Encoder(nn.Module):
         h0 = h
         for stage in range(self.repeat):
             for c in range(self.num_conv):
-                h = F.leaky_relu(
+                h = activation.leaky_relu(
                     self._conv(getattr(self, f"conv_{stage}_{c}"), h, rows),
                     ACT_SLOPE)
             h = h + h0
@@ -130,7 +131,7 @@ class Encoder(nn.Module):
                     h, getattr(self, f"down_{stage}"), dt, self._conv_fn,
                     self._down_pads[stage], rows)
                 rows = rows if still else None
-                h = F.leaky_relu(h, ACT_SLOPE)
+                h = activation.leaky_relu(h, ACT_SLOPE)
                 h0 = h
         z = layers.dense_rows(h, self.fc_out, dt, rows)
         return z.float()

@@ -41,8 +41,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deepfluids_tpu_torch.models import activation
 from deepfluids_tpu_torch.parallel import layers
-from deepfluids_tpu_torch.parallel.comm import Shard
+from deepfluids_tpu_torch.parallel.comm import (
+    Shard,
+    all_reduce_sum,
+    split_rows,
+)
 
 ACT_SLOPE = 0.2   # leaky ReLU slope (the JAX module's act_slope default)
 
@@ -123,7 +128,16 @@ class SpectralResidual(nn.Module):
     carried apart), times the learned complex gains ``gain_re`` /
     ``gain_im`` (Flax layout ``(K_0, .., C)``, zero at init), and back.
     Computed in f32 on an NC(D)HW input; the residual is cast back to the
-    input's dtype."""
+    input's dtype.
+
+    With ``row_shard`` the input holds the rank's block of rows of the
+    first spatial axis, and the transform is distributed over the rows:
+    the other axes are contracted first, then the rows with the rank's
+    rows of the forward basis, and the partial spectra (``[B, C, K_0,
+    ..]``, small) are summed over the group; the gains apply to the whole
+    spectrum, and the inverse keeps the rank's rows.  The sum runs in
+    another order than the whole field's, so the result is not bit-equal
+    to it."""
 
     def __init__(self, modes: int, spatial: Sequence[int], channels: int):
         super().__init__()
@@ -158,18 +172,39 @@ class SpectralResidual(nn.Module):
             rr, ri = rr - im @ bs, ri + im @ bc
         return rr.movedim(-1, dim), ri.movedim(-1, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _basis(self, kind: str, ax: int, rows: slice | None):
+        """The ``fw`` (``[N, K]``) or ``inv`` (``[K, N]``) pair of axis
+        ``ax``, cut to ``rows`` of the spatial axis when given."""
+        c, s = (getattr(self, f"{kind}_{p}{ax}") for p in "cs")
+        if rows is None:
+            return c, s
+        return (c[rows], s[rows]) if kind == "fw" else (c[:, rows],
+                                                        s[:, rows])
+
+    def forward(self, x: torch.Tensor,
+                row_shard: Shard | None = None) -> torch.Tensor:
+        rows = None
+        if row_shard is not None and row_shard.active:
+            n = x.shape[2]
+            rows = slice(row_shard.index * n, (row_shard.index + 1) * n)
+        # the row axis last when it is sharded: its sum spans the group
+        order = list(range(self.ndim))
+        if rows is not None:
+            order = order[1:] + order[:1]
         xr, xi = x.float(), None
-        for ax in range(self.ndim):
-            xr, xi = self._contract(xr, xi, getattr(self, f"fw_c{ax}"),
-                                    getattr(self, f"fw_s{ax}"), 2 + ax)
+        for ax in order:
+            xr, xi = self._contract(xr, xi, *self._basis(
+                "fw", ax, rows if ax == 0 else None), 2 + ax)
+        if rows is not None:
+            spec = all_reduce_sum(torch.stack([xr, xi]), row_shard)
+            xr, xi = spec[0], spec[1]
         # (K_0, .., C) -> (C, K_0, ..), broadcast over the batch
         perm = (self.ndim, *range(self.ndim))
         gr, gi = self.gain_re.permute(perm), self.gain_im.permute(perm)
         xr, xi = xr * gr - xi * gi, xr * gi + xi * gr
-        for ax in range(self.ndim):
-            xr, xi = self._contract(xr, xi, getattr(self, f"inv_c{ax}"),
-                                    getattr(self, f"inv_s{ax}"), 2 + ax)
+        for ax in order:
+            xr, xi = self._contract(xr, xi, *self._basis(
+                "inv", ax, rows if ax == 0 else None), 2 + ax)
         return x + xr.to(x.dtype)
 
 
@@ -276,9 +311,10 @@ class GeneratorBE(nn.Module):
     Spatial sharding (the JAX module's ``spatial_mesh``): after
     :meth:`shard_rows`, every feature map whose first spatial extent divides
     by the group size holds the rank's rows (the coarser ones stay
-    replicated), and the output is the rank's rows of the field.  The
-    spectral residuals and the basis injection transform whole maps and
-    are refused with it by the trainer.  Conv layers cut by
+    replicated), and the output is the rank's rows of the field.  On such
+    a map a spectral residual is a DFT distributed over the rows
+    (:class:`SpectralResidual`) and the basis injection reads the rank's
+    rows of its basis.  Conv layers cut by
     :func:`..parallel.mesh.shard_channels_` compute their channels and
     gather the rest (:func:`..parallel.layers.conv`).
     """
@@ -357,9 +393,13 @@ class GeneratorBE(nn.Module):
         """Stage ``stage``'s injection ``[B, filters, *res]``: the codes
         ``coef(z)`` ``[B, R]`` (f32) times the basis ``[R, *res, F]``
         (f32), projected to ``filters`` by the bias-free 1x1 conv in the
-        compute dtype."""
+        compute dtype.  On a sharded map the basis is cut to the rank's
+        rows; its gradient is then the rank's rows' and the gradient
+        reduction sums the group's."""
         coef = getattr(self, f"coef_{stage}")
         basis = getattr(self, f"basis_{stage}")
+        if layers.sharded(basis.shape[1], self.row_shard):
+            basis = split_rows(basis, self.row_shard, 1)
         a = F.linear(z.float(), coef.weight, coef.bias)
         inj = (a @ basis.reshape(basis.shape[0], -1)).view(
             -1, *basis.shape[1:]).permute(*self._to_nc)
@@ -383,10 +423,12 @@ class GeneratorBE(nn.Module):
             if self.inject:
                 x = x + self._basis_inject(z, stage)
             for c in range(self.num_conv):
-                x = F.leaky_relu(self._conv(
+                x = activation.leaky_relu(self._conv(
                     getattr(self, f"conv_{stage}_{c}"), x, extent), ACT_SLOPE)
             if self.spectral:
-                x = getattr(self, f"spectral_{stage}")(x)
+                rs = self.row_shard
+                x = getattr(self, f"spectral_{stage}")(
+                    x, rs if layers.sharded(extent, rs) else None)
             if stage < self.repeat - 1:
                 # a sharded map's rows upsample to the rows of the next
                 was = layers.sharded(extent, self.row_shard)

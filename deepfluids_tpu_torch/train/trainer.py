@@ -98,24 +98,10 @@ ARCHS = ("de", "ae", "nn")
 
 
 def _check_spatial_flags(c: Config) -> None:
-    """``--spatial_shard`` applies to the field archs; the combinations
-    that ROADMAP Queue A item 11 lists as left raise rather than run
-    unsharded in silence."""
-    if not c.spatial_shard:
-        return
-    if c.arch not in ("de", "ae"):
+    """``--spatial_shard`` applies to the field archs, as in the JAX
+    trainer."""
+    if c.spatial_shard and c.arch not in ("de", "ae"):
         raise ValueError("--spatial_shard applies to arch de/ae only")
-    left = [
-        (c.arch == "de" and c.spectral_modes > 0, "--spectral_modes"),
-        (c.arch == "de" and c.decoder == "grid" and c.grid_rank > 0,
-         "--decoder grid's basis injection (--grid_rank > 0)"),
-        (c.num_model_shards > 1, "--num_model_shards > 1"),
-    ]
-    for bad, what in left:
-        if bad:
-            raise NotImplementedError(
-                f"--spatial_shard with {what} is left of ROADMAP Queue A "
-                "item 11; not ported yet")
 
 
 def _check_unported_train_flags(c: Config) -> None:

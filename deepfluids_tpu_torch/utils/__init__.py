@@ -7,7 +7,11 @@ from deepfluids_tpu_torch.utils.images import (
     save_gif,
     save_image_grid,
 )
-from deepfluids_tpu_torch.utils.parity import check_fields, normalized_l2
+from deepfluids_tpu_torch.utils.parity import (
+    check_dirs,
+    check_fields,
+    normalized_l2,
+)
 from deepfluids_tpu_torch.utils.rundir import get_logger, prepare_run_dir
 
 __all__ = [
@@ -17,6 +21,7 @@ __all__ = [
     "save_field_image",
     "save_gif",
     "save_image_grid",
+    "check_dirs",
     "check_fields",
     "normalized_l2",
 ]

@@ -1,13 +1,14 @@
-"""Field visualization: vorticity PNGs and GIFs, numpy only.
+"""Field visualization: vorticity / magnitude PNGs and GIFs, numpy only.
 
-Counterpart of :mod:`deepfluids_tpu.utils.images` for the renders the
-sweep and the trainer write, with the same diverging colormap and the same
-orientation (origin flipped so +y is up).  A 3D field renders as its
-mid-depth slice, the JAX module's default ``projection="slice"`` (its
-``"max"`` projection is not ported).  The JAX module writes through PIL and
-imageio; here the PNG (zlib + CRC chunks) and the GIF (a fixed 252-colour
-palette, uncompressed LZW) are written with numpy and the standard library
-alone, so serving needs neither package.
+Counterpart of :mod:`deepfluids_tpu.utils.images`, with the same renders:
+the same colormaps (blue-white-red for signed scalars, black-body for
+magnitudes), the same modes and 3D projections (the mid-depth slice, or
+the maximum-intensity projection along depth), and the same orientation
+(origin flipped so +y is up); an image is byte-equal to the JAX module's.
+The JAX module writes through PIL and imageio; here the PNG (zlib + CRC
+chunks) and the GIF (a fixed 252-colour palette, uncompressed LZW) are
+written with numpy and the standard library alone, so serving needs
+neither package.
 """
 
 from __future__ import annotations
@@ -31,6 +32,17 @@ def _colorize_diverging(x: np.ndarray,
     return (np.stack([r, g, b], axis=-1) * 255).astype(np.uint8)
 
 
+def _colorize_magnitude(x: np.ndarray,
+                        vmax: float | None = None) -> np.ndarray:
+    """Nonnegative scalar [H, W] -> uint8 RGB, black-body-style ramp."""
+    vmax = vmax or (x.max() + 1e-8)
+    t = np.clip(x / vmax, 0.0, 1.0)
+    r = np.clip(3.0 * t, 0, 1)
+    g = np.clip(3.0 * t - 1.0, 0, 1)
+    b = np.clip(3.0 * t - 2.0, 0, 1)
+    return (np.stack([r, g, b], axis=-1) * 255).astype(np.uint8)
+
+
 def _np_fdiff(x: np.ndarray, axis: int) -> np.ndarray:
     """numpy twin of ops.fd._fdiff (forward diff, last-derivative edge
     replication)."""
@@ -46,29 +58,57 @@ def _np_vorticity2d(field: np.ndarray) -> np.ndarray:
             - _np_fdiff(field[..., 0], axis=-2))
 
 
-def _render_scalar(field: np.ndarray, mode: str) -> np.ndarray:
-    """The signed scalar [H, W] a field renders as: the (mid-depth slice of
-    a 3D field's) vorticity of its first two channels, or its first
-    channel (levelset / generic scalar)."""
+def _np_vorticity3d(field: np.ndarray) -> np.ndarray:
+    """The vorticity vector ``(dwdy - dvdz, dudz - dwdx, dvdx - dudy)`` of
+    [D, H, W, 3] (matches ops.fd.vorticity3d)."""
+    u, v, w = field[..., 0], field[..., 1], field[..., 2]
+    return np.stack([_np_fdiff(w, -2) - _np_fdiff(v, -3),
+                     _np_fdiff(u, -3) - _np_fdiff(w, -1),
+                     _np_fdiff(v, -1) - _np_fdiff(u, -2)], axis=-1)
+
+
+def _render_scalar(field: np.ndarray, mode: str,
+                   projection: str = "slice") -> tuple[np.ndarray, bool]:
+    """The scalar [H, W] a field renders as, and whether it is signed (the
+    diverging map, scaled by |max|) or a magnitude (black-body, by max).
+
+    A 3D field is reduced to a plane first: its mid-depth slice
+    (``projection="slice"``), or (``"max"``) the in-plane vorticity at the
+    depth of the largest |vorticity| (mode "vorticity" on 3 channels) or
+    the largest magnitude along depth (any other mode)."""
     field = np.asarray(field, np.float32)
-    if field.ndim == 4:      # [D, H, W, C] -> the mid-depth plane
+    if field.ndim == 4:      # [D, H, W, C] -> a plane
+        if projection == "max":
+            if mode == "vorticity" and field.shape[-1] == 3:
+                vort = _np_vorticity3d(field)
+                d_idx = np.linalg.norm(vort, axis=-1).argmax(axis=0)
+                hh, ww = np.indices(d_idx.shape)
+                return vort[..., 2][d_idx, hh, ww], True
+            return np.linalg.norm(field, axis=-1).max(axis=0), False
         field = field[field.shape[0] // 2]
     if field.ndim != 3:
         raise ValueError(f"cannot render a field of shape {field.shape}: "
                          "want [H, W, C] or [D, H, W, C]")
     if mode == "vorticity" and field.shape[-1] >= 2:
-        return _np_vorticity2d(field[..., :2])
-    return field[..., 0]
+        return _np_vorticity2d(field[..., :2]), True
+    if mode == "magnitude":
+        return np.linalg.norm(field, axis=-1), False
+    return field[..., 0], True
 
 
 def field_to_image(field: np.ndarray, mode: str = "vorticity",
-                   vmax: float | None = None) -> np.ndarray:
-    """Render one [H, W, C] field (or the mid-depth slice of a [D, H, W, C]
-    one) to an RGB uint8 image, +y up, on the blue-white-red map scaled by
-    ``vmax`` (default: the field's own max).
+                   vmax: float | None = None,
+                   projection: str = "slice") -> np.ndarray:
+    """Render one [H, W, C] or [D, H, W, C] field to an RGB uint8 image, +y
+    up, scaled by ``vmax`` (default: the rendered scalar's own max).
 
-    mode: "vorticity" | "levelset" | "scalar"."""
-    return _colorize_diverging(_render_scalar(field, mode), vmax)[::-1]
+    mode: "vorticity" | "magnitude" | "levelset" | "scalar"; projection (3D
+    only): "slice" (the mid-depth plane) or "max" (the maximum-intensity
+    projection along depth)."""
+    scalar, diverging = _render_scalar(field, mode, projection)
+    img = (_colorize_diverging(scalar, vmax) if diverging
+           else _colorize_magnitude(scalar, vmax))
+    return img[::-1]
 
 
 def png_bytes(img: np.ndarray) -> bytes:
@@ -149,16 +189,19 @@ def _write(path: str, data: bytes) -> str:
     return path
 
 
-def save_field_image(path: str, field: np.ndarray,
-                     mode: str = "vorticity") -> str:
-    return _write(path, png_bytes(field_to_image(field, mode)))
+def save_field_image(path: str, field: np.ndarray, mode: str = "vorticity",
+                     vmax: float | None = None,
+                     projection: str = "slice") -> str:
+    return _write(path, png_bytes(field_to_image(field, mode, vmax,
+                                                 projection)))
 
 
 def save_image_grid(path: str, fields: Sequence[np.ndarray], ncol: int = 0,
-                    mode: str = "vorticity") -> str:
+                    mode: str = "vorticity", vmax: float | None = None,
+                    projection: str = "slice") -> str:
     """Tile several fields into one PNG montage, each on its own colour
-    scale (the train-time sample dump)."""
-    imgs = [field_to_image(f, mode) for f in fields]
+    scale unless ``vmax`` is given (the train-time sample dump)."""
+    imgs = [field_to_image(f, mode, vmax, projection) for f in fields]
     ncol = ncol or int(np.ceil(np.sqrt(len(imgs))))
     nrow = -(-len(imgs) // ncol)
     h, w, _ = imgs[0].shape
@@ -170,11 +213,14 @@ def save_image_grid(path: str, fields: Sequence[np.ndarray], ncol: int = 0,
 
 
 def save_gif(path: str, fields: Sequence[np.ndarray],
-             mode: str = "vorticity") -> str:
-    """Assemble a field sequence into a GIF with ONE colour scale over the
-    whole sequence, so a decaying plume fades instead of being renormalized
-    every frame."""
-    vmax = max((float(np.abs(_render_scalar(f, mode)).max())
-                for f in fields), default=0.0) or None
-    return _write(path, gif_bytes([field_to_image(f, mode, vmax)
+             mode: str = "vorticity", vmax: float | None = None,
+             projection: str = "slice") -> str:
+    """Assemble a field sequence into a GIF.  ``vmax=None`` takes ONE
+    colour scale over the whole sequence (the largest |rendered scalar|),
+    so a decaying plume fades instead of being renormalized every
+    frame."""
+    if vmax is None:
+        vmax = max((float(np.abs(_render_scalar(f, mode, projection)[0])
+                          .max()) for f in fields), default=0.0) or None
+    return _write(path, gif_bytes([field_to_image(f, mode, vmax, projection)
                                    for f in fields]))

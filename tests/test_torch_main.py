@@ -192,18 +192,48 @@ def test_missing_weights_names_the_export(runs, tmp_path):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    # --spatial_shard with what ROADMAP Queue A item 11 lists as left
-    ({"is_train": False, "arch": "ae", "spatial_shard": True,
-      "num_model_shards": 2}, NotImplementedError, "Queue A item 11"),
     # The JAX trainer's refusal, with its message.
-    ({"is_train": False, "arch": "nn", "ae_load_path": "ae",
-      "decoder": "grid"}, ValueError, "applies to arch de"),
-    ({"is_train": False, "spatial_shard": True, "spectral_modes": 4},
-     NotImplementedError, "Queue A item 11")])
+    pytest.param({"is_train": False, "arch": "nn", "ae_load_path": "ae",
+                  "decoder": "grid"}, ValueError, "applies to arch de",
+                 id="kw1-ValueError-applies to arch de")])
 def test_unported_paths_raise(runs, kw, exc, match):
     cfg = _port_cfg(runs["env"], load_path=runs["torch_run"], **kw)
     with pytest.raises(exc, match=match):
         torch_main(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kw,ranks", [
+    ({"arch": "ae", "spatial_shard": True, "num_model_shards": 2}, 4),
+    ({"spatial_shard": True, "spectral_modes": 4}, 2)],
+    ids=["ae-rows_by_channels", "de-spectral"])
+def test_spatial_combinations_train_and_serve_through_main(runs, kw, ranks):
+    """--spatial_shard with --num_model_shards 2 (arch ae, 2 rows x 2
+    channels over 4 ranks) and with --spectral_modes (2 ranks) train
+    through ``python -m deepfluids_tpu_torch.main`` on gloo ranks, then
+    serve from the run in one process (the encode pass; the sweep)."""
+    from deepfluids_tpu_torch.tools import launch_multihost
+
+    env = runs["env"]
+    tag = "sp_" + "_".join(f"{k}{v}" for k, v in kw.items() if k != "arch")
+    flags = _kw(env, tag=tag, **kw)
+    argv = [a for k, v in flags.items() for a in (f"--{k}", str(v))]
+    rcs, outs = launch_multihost.spawn(
+        [sys.executable, "-m", "deepfluids_tpu_torch.main", "--device",
+         "cpu", *argv], ranks, "gloo", threads=1, capture=True, timeout=300)
+    assert rcs == [0] * ranks, outs[0][-3000:]
+    run = os.path.join(env["logs"], f"tiny_{tag}")
+    assert os.path.exists(os.path.join(run, "weights.npz"))
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        assert len(f.readlines()) == 3
+    # the codes go beside, not over, the ae -> nn pipeline's
+    r = torch_main(_port_cfg(env, is_train=False, load_path=run,
+                             test_frames=2, code_suffix="_sp", **kw),
+                   device="cpu")
+    if kw.get("arch") == "ae":
+        assert r == {"code_dir": os.path.join(env["data"], "tiny",
+                                              "code8_sp")}
+    else:
+        assert r["num_fields"] == 8 and np.isfinite(r["eval"]["l2_mean"])
 
 
 @pytest.mark.parametrize("is_train", [False, True])

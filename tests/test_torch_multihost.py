@@ -15,11 +15,20 @@ rounding, see ROADMAP Queue C).  The gradient of conv_out's bias is
 rounding noise under the curl (it cannot change the field), so Adam makes
 it lr-sized noise: that bias is left out of the weight comparisons.
 
+Four more ranks, spawned beside the two, run the rows x channels layout
+(``--spatial_shard --num_model_shards 2``, 2 x 2): the generator with the
+spectral residuals and the grid decoder's basis injection (random gains
+and bases) and the autoencoder; a checkpoint written there is resumed in
+one process bit for bit, and a one-process checkpoint is resumed there.
+
 Gradients of one batch are held to the JAX tests' bar (rtol / atol 1e-5),
 and, with a smooth activation in place of the leaky ReLU, to 1e-5 of each
 parameter's largest entry: at the kink a pre-activation within rounding of
 zero takes either slope, so two exact computations that round otherwise
-(a haloed block, a cut layer) differ there by a whole point's share.
+(a haloed block, a cut layer) differ there by a whole point's share.  The
+stand-in replaces ``models.activation.leaky_relu``, the hook the models
+call; each comparison asserts that its loss differs from the leaky one's,
+so the stand-in is known to be live.
 """
 
 import json
@@ -35,13 +44,16 @@ import torch
 from deepfluids_tpu.datagen import scenes
 from deepfluids_tpu_torch.config import Config as PortConfig
 from deepfluids_tpu_torch.infer import encode_dataset
+from deepfluids_tpu_torch.models import activation
 from deepfluids_tpu_torch.main import main as torch_main
+from deepfluids_tpu_torch.models import state_dict_to_flax
 from deepfluids_tpu_torch.tools import dryrun, launch_multihost
 from deepfluids_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANKS = 2
 STEPS = 3
+GRID = 4            # ranks of rows x channels (2 x 2)
 
 # One rank of the module's group: every job of the spec file in turn.
 WORKER = r"""
@@ -50,13 +62,13 @@ import numpy as np, torch
 torch.set_num_threads(1)
 from deepfluids_tpu_torch import parallel
 from deepfluids_tpu_torch.config import Config
+from deepfluids_tpu_torch.models import activation
 from deepfluids_tpu_torch.train.trainer import Trainer
 parallel.init_distributed("cpu")
 rank = parallel.world()[0]
+leaky = activation.leaky_relu
 for job in json.load(open(sys.argv[1])):
-    if job.get("smooth"):
-        torch.nn.functional.leaky_relu = lambda x, s=0.2: x * (
-            0.6 + 0.4 * torch.tanh(x))
+    activation.leaky_relu = activation.smooth if job.get("smooth") else leaky
     t = Trainer(Config(**job["config"]), run_dir=job["run_dir"],
                 device="cpu", save_cfg=False)
     if job.get("resume"):
@@ -70,6 +82,9 @@ for job in json.load(open(sys.argv[1])):
             np.savez(job["out"], __loss__=np.float64(loss), **grads)
     if job.get("steps"):
         t.train(job["steps"])
+    if job.get("local"):
+        np.savez(job["local"] + f".rank{rank}.npz",
+                 **{k: v.numpy() for k, v in t.model.state_dict().items()})
 print("WORKER_OK", flush=True)
 """
 
@@ -105,11 +120,16 @@ JOBS = {
 
 SMOOTH = {"dp": {"num_data_shards": 2}, "sp": {"spatial_shard": True},
           "tp": {"num_model_shards": 2}}
-
-
-def _smooth(x, negative_slope=0.2):
-    """A smooth stand-in for the leaky ReLU (no kink)."""
-    return x * (0.6 + 0.4 * torch.tanh(x))
+ROWS_BY_CHANNELS = {"spatial_shard": True, "num_data_shards": 2,
+                    "num_model_shards": 2}
+# name -> (the one-process run it is held against, its layout, ranks): the
+# generator with the spectral residuals and the basis injection under
+# --spatial_shard and rows x channels, and the autoencoder under rows x
+# channels
+SMOOTH_KNOBS = {"sp_knobs": ("knobs", {"spatial_shard": True}, RANKS),
+                "sptp_knobs": ("knobs", ROWS_BY_CHANNELS, GRID),
+                "sptp_ae": ("ae", ROWS_BY_CHANNELS, GRID)}
+KNOBS = {"spectral_modes": 4, "decoder": "grid", "grid_rank": 4}
 
 
 def _null(key: str) -> bool:
@@ -173,15 +193,52 @@ def group(tmp_path_factory):
     jobs.append({"config": {**one, "num_model_shards": 2},
                  "run_dir": tp_grads, "batch": str(root / "batch.npz"),
                  "out": str(root / "tp_grads.npz"), "steps": 2})
-    # the gradients of the three layouts with a smooth activation (last:
-    # it stays patched in the ranks)
-    for name, layout in SMOOTH.items():
+    # the generator with the knobs, its gains and bases drawn at random
+    # (zero at init, where they would prove nothing)
+    knobs = _kw(data, logs, tag="knobs", **KNOBS)
+    mk = Trainer(PortConfig(**knobs), run_dir=str(root / "init" / "knobs"),
+                 device="cpu", save_cfg=False)
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for n, p in mk.model.named_parameters():
+            if n.split(".")[-1].startswith(("gain_", "basis_")):
+                p.copy_(torch.from_numpy(
+                    rng.normal(0, 0.05, p.shape).astype(np.float32)))
+    mk.save_checkpoint()
+    runs["knobs"] = (knobs, mk.run_dir, None)
+    # the gradients of each layout with a smooth activation
+    grid_jobs = []
+    smooth = {name: (runs[base][0], runs[base][1], layout, ranks)
+              for name, (base, layout, ranks) in SMOOTH_KNOBS.items()}
+    smooth.update({name: (one, init, layout, RANKS)
+                   for name, layout in SMOOTH.items()})
+    for name, (cfg, start, layout, ranks) in smooth.items():
         run = str(root / "ranks" / f"smooth_{name}")
         os.makedirs(run)
-        shutil.copy(os.path.join(init, "weights.npz"), run)
-        jobs.append({"config": {**one, **layout}, "run_dir": run,
-                     "batch": str(root / "batch.npz"), "smooth": True,
-                     "out": str(root / f"smooth_{name}.npz")})
+        shutil.copy(os.path.join(start, "weights.npz"), run)
+        (jobs if ranks == RANKS else grid_jobs).append(
+            {"config": {**cfg, **layout}, "run_dir": run,
+             "batch": str(root / "batch.npz"), "smooth": True,
+             "out": str(root / f"smooth_{name}.npz")})
+    # rows x channels: a 2-step checkpoint (and each rank's own blocks),
+    # and a one-process checkpoint resumed for a third step
+    sptp_ckpt = str(root / "ranks" / "sptp_ckpt")
+    os.makedirs(sptp_ckpt)
+    shutil.copy(os.path.join(mk.run_dir, "weights.npz"), sptp_ckpt)
+    grid_jobs.append({"config": {**knobs, **ROWS_BY_CHANNELS},
+                      "run_dir": sptp_ckpt, "steps": 2,
+                      "local": str(root / "sptp_local")})
+    one_knobs = str(root / "one_knobs")
+    os.makedirs(one_knobs)
+    shutil.copy(os.path.join(mk.run_dir, "weights.npz"), one_knobs)
+    tk = Trainer(PortConfig(**knobs), run_dir=one_knobs, device="cpu",
+                 save_cfg=False)
+    tk.restore_weights()
+    tk.train(2)
+    sptp_resume = str(root / "ranks" / "sptp_resume")
+    shutil.copytree(one_knobs, sptp_resume)
+    grid_jobs.append({"config": {**knobs, **ROWS_BY_CHANNELS},
+                      "run_dir": sptp_resume, "resume": True, "steps": 1})
     # last: --die_at_step kills both ranks at step 2
     die = str(root / "ranks" / "die")
     os.makedirs(die)
@@ -189,14 +246,27 @@ def group(tmp_path_factory):
     jobs.append({"config": {**runs["de2d"][0], "num_data_shards": 2,
                             "die_at_step": 2, "save_step": 1},
                  "run_dir": die, "steps": 4})
-    with open(root / "jobs.json", "w") as f:
-        json.dump(jobs, f)
-    rcs, outs = launch_multihost.spawn(
-        [sys.executable, "-c", WORKER, str(root / "jobs.json")], RANKS,
-        "gloo", threads=1, capture=True, timeout=600)
+
+    def spawn(name: str, job_list: list, ranks: int):
+        with open(root / f"{name}.json", "w") as f:
+            json.dump(job_list, f)
+        return launch_multihost.spawn(
+            [sys.executable, "-c", WORKER, str(root / f"{name}.json")],
+            ranks, "gloo", threads=1, capture=True, timeout=600)
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:      # both groups at once
+        pair = pool.submit(spawn, "jobs", jobs, RANKS)
+        grid = pool.submit(spawn, "grid_jobs", grid_jobs, GRID)
+        (rcs, outs), (grcs, gouts) = pair.result(), grid.result()
     assert rcs == [17] * RANKS, (rcs, outs[0][-3000:], outs[1][-3000:])
+    assert grcs == [0] * GRID and all("WORKER_OK" in o for o in gouts), (
+        grcs, gouts[0][-3000:])
     return {"root": root, "runs": runs, "tp_resume": tp_resume,
-            "tp_grads": tp_grads, "batch": (x, y), "die": die}
+            "tp_grads": tp_grads, "batch": (x, y), "die": die,
+            "sptp_ckpt": sptp_ckpt, "sptp_resume": sptp_resume,
+            "sptp_local": str(root / "sptp_local")}
 
 
 def _one_process(group, name: str, steps: int = STEPS) -> str:
@@ -252,27 +322,88 @@ def test_tensor_parallel_grads_match_one_process(group):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("name", list(SMOOTH))
+@pytest.mark.parametrize("name", list(SMOOTH) + list(SMOOTH_KNOBS))
 def test_layout_grads_match_one_process_without_the_kink(group, name,
                                                         monkeypatch):
-    """Data parallel, --spatial_shard and --num_model_shards 2: loss and
-    every gradient within 1e-5 of one process's, relative to the
-    parameter's largest entry (a smooth activation, so no point can take
-    the other slope)."""
-    one, init, _ = group["runs"]["tp"]
-    monkeypatch.setattr(torch.nn.functional, "leaky_relu", _smooth)
+    """Data parallel, --spatial_shard and --num_model_shards 2, and the
+    generator with the spectral residuals and the basis injection under
+    --spatial_shard and rows x channels (2 x 2), and the autoencoder under
+    rows x channels: loss and every gradient within 1e-5 of one process's,
+    relative to the parameter's largest entry (a smooth activation, so no
+    point can take the other slope).  The smooth loss differs from the
+    leaky one: the stand-in reached the models."""
+    base = SMOOTH_KNOBS[name][0] if name in SMOOTH_KNOBS else "tp"
+    one, init, _ = group["runs"][base]
     t = Trainer(PortConfig(**one), run_dir=init, device="cpu",
                 save_cfg=False)
     t.restore_weights()
+    leaky_loss, _ = t._loss_and_grads(*group["batch"])
+    monkeypatch.setattr(activation, "leaky_relu", activation.smooth)
     loss, grads = t._loss_and_grads(*group["batch"])
+    # live: the losses differ by far more than the 1e-6 held below
+    assert abs(loss - leaky_loss) > 1e-4 * abs(leaky_loss), (loss,
+                                                             leaky_loss)
     with np.load(group["root"] / f"smooth_{name}.npz") as d:
         got = {k: d[k] for k in d.files}
     assert float(got.pop("__loss__")) == pytest.approx(loss, rel=1e-6)
+    assert set(got) == set(grads)
     scale = max(float(np.abs(g).max()) for g in grads.values())
     for k, g in grads.items():
         ref = scale if _null(k) else float(np.abs(g).max())
         err = float(np.abs(got[k] - g).max()) / ref
         assert err < 1e-5, (k, err)
+
+
+def test_rows_by_channels_checkpoint_is_bit_equal_on_one_process(group):
+    """A checkpoint written by the 2 x 2 ranks restores in one process to
+    the ranks' own weights, bit for bit: each rank's block of a cut conv
+    and every replicated parameter."""
+    one, _, _ = group["runs"]["knobs"]
+    t = Trainer(PortConfig(**one), run_dir=group["sptp_ckpt"], device="cpu",
+                save_cfg=False)
+    assert t.restore_checkpoint() == 2
+    whole = {k: v.numpy() for k, v in t.model.state_dict().items()}
+    cut = 0
+    for rank in range(GRID):
+        m = rank % 2                   # rank = row index * 2 + model index
+        with np.load(f"{group['sptp_local']}.rank{rank}.npz") as d:
+            local = {k: d[k] for k in d.files}
+        assert set(local) == set(whole)
+        for k, w in whole.items():
+            if local[k].shape != w.shape:
+                n = local[k].shape[0]
+                w = w[m * n:(m + 1) * n]
+                cut += 1
+            np.testing.assert_array_equal(local[k], w, err_msg=k)
+    assert cut
+    flat = _weights(group["sptp_ckpt"])
+    for k, v in state_dict_to_flax(t.model.state_dict()).items():
+        np.testing.assert_array_equal(flat[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("direction", ["four_to_one", "one_to_four"])
+def test_rows_by_channels_checkpoint_resumes_across_layouts(group,
+                                                             direction):
+    """The 2 x 2 ranks' checkpoint resumes in one process, and one
+    process's in the 2 x 2 ranks; both land on the uninterrupted run."""
+    one, _, _ = group["runs"]["knobs"]
+    want = _weights(_one_process(group, "knobs"))
+    if direction == "four_to_one":
+        run = str(group["root"] / "resumed_sptp")
+        shutil.copytree(group["sptp_ckpt"], run)
+        t = Trainer(PortConfig(**one), run_dir=run, device="cpu",
+                    save_cfg=False)
+        assert t.restore_checkpoint() == 2
+        t.train(1)
+        got = _weights(run)
+    else:
+        got = _weights(group["sptp_resume"])
+        assert [r["step"] for r in _losses(group["sptp_resume"])][-1] == 3
+    assert set(got) == set(want)
+    for k in want:
+        if not _null(k):
+            np.testing.assert_allclose(got[k], want[k], atol=1e-5,
+                                       err_msg=k)
 
 
 @pytest.mark.parametrize("direction", ["two_to_one", "one_to_two"])

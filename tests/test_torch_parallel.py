@@ -7,15 +7,26 @@
     within 1e-6, the gradient through the halo within 1e-5.
   * Ranks spawned once for the module (gloo on the CPU, a free port): four
     run the plain sharded ops (divergence, the levelset gradient) and the
-    kernels through real exchanges, including one-row blocks, and the 3D
-    ``--spatial_shard`` trainer on one z-slice a rank; two run the 2D
-    generator and the autoencoder (32 rows: the encoder's stride-2 convs
-    on the successor's row and ``fc_out`` on each rank's rows; 36 rows with
-    ``--ae_pred_w``: 9 rows a rank after the first stride-2 conv, so the
-    next one gathers the map).  The trainers' loss and gradients must equal
-    JAX's spatial ``Trainer`` from the same weights (random biases; rtol
-    1e-5 / atol 1e-5, the bar of ``tests/test_train.py``), and they train
-    on.
+    kernels through real exchanges, including one-row blocks, the 3D
+    ``--spatial_shard`` trainer on one z-slice a rank (also with
+    ``--spectral_modes``: a DFT distributed over one-row blocks), and the
+    rows x channels layout (2 rows x 2 channels: ``--spatial_shard
+    --num_model_shards 2``) for the generator with the spectral residuals
+    and the grid decoder's basis injection, and for the autoencoder; two
+    run the 2D generator (plain, with ``--spectral_modes``, with ``--decoder
+    grid --grid_rank``) and the autoencoder (32 rows: the encoder's
+    stride-2 convs on the successor's row and ``fc_out`` on each rank's
+    rows; 36 rows with ``--ae_pred_w``: 9 rows a rank after the first
+    stride-2 conv, so the next one gathers the map).  The trainers' loss
+    and gradients must equal JAX's spatial ``Trainer`` from the same
+    weights (random biases, gains and bases, and the 2D generator and the
+    autoencoder also at JAX's init, zero biases, at 36 rows: there the
+    encoder meets exact zeros, a zero patch of the field times a zero
+    bias, where the leaky ReLU's gradient is 1 in JAX and in the port and
+    the slope in ``F.leaky_relu``, 1.8e-3 away; rtol 1e-5 / atol 1e-5, the
+    bar of ``tests/test_train.py``), and they train on.
+  * The models' leaky ReLU against ``jax.nn.leaky_relu``: the same forward
+    and the gradient 1 at exactly 0.
   * The layout's refusals, as the JAX trainer's.
 """
 
@@ -38,6 +49,7 @@ from deepfluids_tpu.parallel import halo as jhalo  # noqa: E402
 from deepfluids_tpu.parallel.mesh import make_mesh  # noqa: E402
 from deepfluids_tpu.train.trainer import Trainer as JaxTrainer  # noqa: E402
 from deepfluids_tpu_torch.config import Config as PortConfig  # noqa: E402
+from deepfluids_tpu_torch.models import activation  # noqa: E402
 from deepfluids_tpu_torch.ops import cuda_fd  # noqa: E402
 from deepfluids_tpu_torch.parallel import (  # noqa: E402
     Layout,
@@ -197,41 +209,75 @@ def _jax_loss_and_grads(t, x, y):
     return float(loss), weights_io.flatten_params(jax.device_get(grads))
 
 
-def _spatial_job(root, data, logs, name: str, ranks: int, **kw) -> dict:
-    """The JAX spatial trainer's loss and gradients of one batch, and a
-    port job from its weights.  The biases are made random first: at init
-    they are zero, and where a zero patch of the field meets them a
-    pre-activation is exactly 0, where the leaky ReLU's gradient is the
-    slope in torch and 1 in JAX (ROADMAP Queue C)."""
+def _randomized(key: str, biases: bool) -> bool:
+    """Whether a parameter is drawn at random before the comparison: the
+    knobs' tables (zero at init, so a comparison there proves nothing)
+    and, unless JAX's init is wanted, the biases."""
+    leaf = key.split("/")[-1]
+    return (leaf.startswith(("gain_", "basis_"))
+            or (biases and leaf == "bias"))
+
+
+def _jax_spatial(data, logs, name: str, ranks: int, flat: dict | None,
+                 random_bias: bool, **kw):
+    """JAX's spatial ``Trainer`` over ``ranks`` rows, its weights ``flat``
+    (None: its init with the randomized entries of :func:`_randomized`),
+    and its loss and gradients of batch 1."""
     jt = JaxTrainer(Config(**_kw(data, logs, tag=f"jax_{name}",
                                  spatial_shard=True, num_data_shards=ranks,
                                  **kw)))
-    rng = np.random.default_rng(11)
-    flat = weights_io.flatten_params(jax.device_get(jt.state.params))
-    flat = {k: v + rng.normal(0, 0.05, v.shape).astype(v.dtype)
-            if k.endswith("bias") else v for k, v in flat.items()}
+    if flat is None:
+        rng = np.random.default_rng(11)
+        flat = weights_io.flatten_params(jax.device_get(jt.state.params))
+        flat = {k: v + rng.normal(0, 0.05, v.shape).astype(v.dtype)
+                if _randomized(k, random_bias) else v
+                for k, v in flat.items()}
     jt.state = jt.state.replace(params=jax.tree_util.tree_map(
         lambda a, b: jnp.asarray(b, a.dtype), jt.state.params,
         weights_io.unflatten_params(flat)))
     x, y = jt.bm.step_batch(1)
+    return jt, flat, (x, y), _jax_loss_and_grads(jt, x, y)
+
+
+def _spatial_job(root, data, logs, name: str, ranks: int,
+                 random_bias: bool = True, model_shards: int = 1,
+                 **kw) -> dict:
+    """The JAX spatial trainer's loss and gradients of one batch, and a
+    port job from its weights over ``ranks`` rows x ``model_shards``
+    channel blocks.  The spectral gains and the bases are made random, and
+    so are the biases unless ``random_bias`` is False: then a zero bias
+    meets a zero patch of the field and a pre-activation is exactly 0,
+    where the leaky ReLU's gradient is 1 in JAX and in the port.
+
+    Rows x channels is held against JAX's rows-only spatial Trainer: on a
+    (rows, model) mesh JAX returns twice the gradient of every 3x3 conv
+    kernel (``want_mesh``, held by
+    :func:`test_jax_rows_by_channels_doubles_cut_kernels`)."""
+    jt, flat, (x, y), want = _jax_spatial(data, logs, name, ranks, None,
+                                          random_bias, **kw)
     run = os.path.join(root, "ranks", name)
     os.makedirs(run)
     weights_io.export_npz(jax.device_get(jt.state.params),
                           os.path.join(run, "weights.npz"))
     np.savez(os.path.join(root, f"{name}_batch.npz"), a=x, b=y)
     cfg = _kw(data, logs, tag=name, spatial_shard=True,
-              num_data_shards=ranks, **kw)
-    return {"config": cfg, "run_dir": run,
-            "batch": os.path.join(root, f"{name}_batch.npz"),
-            "out": os.path.join(root, f"{name}_out.npz"),
-            "want": _jax_loss_and_grads(jt, x, y)}
+              num_data_shards=ranks, num_model_shards=model_shards, **kw)
+    job = {"config": cfg, "run_dir": run,
+           "batch": os.path.join(root, f"{name}_batch.npz"),
+           "out": os.path.join(root, f"{name}_out.npz"), "want": want}
+    if model_shards > 1:
+        job["want_mesh"] = _jax_spatial(data, logs, name + "_mesh", ranks,
+                                        flat, random_bias,
+                                        num_model_shards=model_shards,
+                                        **kw)[3]
+    return job
 
 
 def _spawn(root, ranks: int, spec: dict) -> None:
     path = os.path.join(root, f"spec{ranks}.json")
     with open(path, "w") as f:
         json.dump({**spec, "jobs": [{k: v for k, v in j.items()
-                                     if k != "want"}
+                                     if not k.startswith("want")}
                                     for j in spec.get("jobs", [])]}, f)
     rcs, outs = launch_multihost.spawn(
         [sys.executable, "-c", WORKER, path], ranks, "gloo", threads=1,
@@ -267,10 +313,28 @@ def spawned(tmp_path_factory):
             fields[f"want_dx:{name}:{rows}"] = np.asarray(dx)
     np.savez(os.path.join(root, "ops.npz"),
              **{k: v for k, v in fields.items() if not k.startswith("want")})
-    job3d = _spatial_job(root, data, logs, "sp3d", 4, dataset="tiny3d",
-                         batch_size=4)
+    knobs = dict(spectral_modes=4, decoder="grid", grid_rank=4)
+    jobs4 = {"sp3d": _spatial_job(root, data, logs, "sp3d", 4,
+                                  dataset="tiny3d", batch_size=4),
+             "sp3d_spectral": _spatial_job(root, data, logs, "sp3d_spectral",
+                                           4, dataset="tiny3d", batch_size=4,
+                                           spectral_modes=4),
+             "sp_tp_knobs": _spatial_job(root, data, logs, "sp_tp_knobs", 2,
+                                         model_shards=2, **knobs),
+             "sp_tp_ae": _spatial_job(root, data, logs, "sp_tp_ae", 2,
+                                      arch="ae", model_shards=2)}
     jobs2 = {"sp2d": _spatial_job(root, data, logs, "sp2d", 2),
+             "sp2d_init": _spatial_job(root, data, logs, "sp2d_init", 2,
+                                       random_bias=False,
+                                       dataset="tiny_odd"),
+             "sp2d_spectral": _spatial_job(root, data, logs, "sp2d_spectral",
+                                           2, spectral_modes=4),
+             "sp2d_grid": _spatial_job(root, data, logs, "sp2d_grid", 2,
+                                       decoder="grid", grid_rank=4),
              "sp_ae": _spatial_job(root, data, logs, "sp_ae", 2, arch="ae"),
+             "sp_ae_init": _spatial_job(root, data, logs, "sp_ae_init", 2,
+                                        arch="ae", random_bias=False,
+                                        dataset="tiny_odd"),
              "sp_ae_pred": _spatial_job(root, data, logs, "sp_ae_pred", 2,
                                         arch="ae", ae_pred_w=0.5,
                                         dataset="tiny_odd")}
@@ -280,13 +344,13 @@ def spawned(tmp_path_factory):
         done = [pool.submit(_spawn, root, 4, {
                     "ops": os.path.join(root, "ops.npz"),
                     "ops_out": os.path.join(root, "ops_out.npz"),
-                    "jobs": [job3d]}),
+                    "jobs": list(jobs4.values())}),
                 pool.submit(_spawn, root, 2, {"jobs": list(jobs2.values())})]
         for f in done:
             f.result()
     with np.load(os.path.join(root, "ops_out.npz")) as d:
         got = {k: d[k] for k in d.files}
-    return {"fields": fields, "got": got, "jobs": {**jobs2, "sp3d": job3d}}
+    return {"fields": fields, "got": got, "jobs": {**jobs2, **jobs4}}
 
 
 @pytest.mark.parametrize("rows", SIZES)
@@ -302,12 +366,21 @@ def test_sharded_ops_through_ranks_match_jax(spawned, name, rows):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["sp2d", "sp3d", "sp_ae", "sp_ae_pred"])
+SPATIAL_JOBS = ["sp2d", "sp2d_init", "sp2d_spectral", "sp2d_grid", "sp3d",
+                "sp3d_spectral", "sp_ae", "sp_ae_init", "sp_ae_pred",
+                "sp_tp_knobs", "sp_tp_ae"]
+
+
+@pytest.mark.parametrize("name", SPATIAL_JOBS)
 def test_spatial_trainer_matches_jax(spawned, name):
-    """--spatial_shard, 2D over 2 ranks (16 rows each; the autoencoder also
-    at 18 rows each with --ae_pred_w) and 3D over 4 (one z-slice each):
-    loss and gradients of JAX's spatial Trainer from the same weights, then
-    two training steps."""
+    """--spatial_shard, 2D over 2 ranks (16 rows each; the generator also
+    with the spectral residuals and with the basis injection; the
+    autoencoder also at 18 rows each with --ae_pred_w; both at 18 rows
+    each from JAX's zero-bias init), 3D over 4 (one z-slice each, also with the
+    spectral residuals), and rows x channels over 4 (2 x 2: the generator
+    with every knob of the grid decoder and the spectral residuals, the
+    autoencoder): loss and gradients of JAX's spatial Trainer from the
+    same weights, then two training steps."""
     job = spawned["jobs"][name]
     want_loss, want = job["want"]
     with np.load(job["out"]) as d:
@@ -317,6 +390,46 @@ def test_spatial_trainer_matches_jax(spawned, name):
     assert set(got) == set(want)
     for k, w in want.items():
         np.testing.assert_allclose(got[k], w, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["sp_tp_knobs", "sp_tp_ae"])
+def test_jax_rows_by_channels_doubles_cut_kernels(spawned, name):
+    """A fault of the reference, held: JAX's spatial Trainer on a 2 x 2
+    (rows, model) mesh gives the loss of the rows-only one, but twice the
+    gradient of every 3x3 conv kernel, conv_out's and the encoder's
+    stride-2 ones too (the 1x1 injection kernels, biases, dense layers and
+    the knobs' tables equal).  The port's rows x channels
+    gradients are the true ones: those of JAX's rows-only layout (above)
+    and of one process."""
+    job = spawned["jobs"][name]
+    (loss, want), (mesh_loss, mesh) = job["want"], job["want_mesh"]
+    assert mesh_loss == pytest.approx(loss, rel=1e-5)
+    doubled = {k for k, w in want.items()      # [3, 3, (3,) in, out]
+               if k.endswith("kernel") and w.ndim >= 4 and w.shape[0] == 3}
+    assert doubled
+    for k, w in want.items():
+        np.testing.assert_allclose(mesh[k], 2 * w if k in doubled else w,
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_leaky_relu_matches_jax_at_zero(dtype):
+    """The models' activation: F.leaky_relu's forward, and JAX's gradient,
+    1 at exactly 0 and -0.0 (F.leaky_relu's is the slope there)."""
+    x = np.array([0.0, -0.0, 0.75, -0.75, 3.0, -3.0], np.float32)
+    xt = torch.tensor(x, dtype=getattr(torch, dtype), requires_grad=True)
+    y = activation.leaky_relu(xt, 0.2)
+    y.sum().backward()
+    xj = jnp.asarray(x, getattr(jnp, dtype))
+    want_y = jax.nn.leaky_relu(xj, 0.2)
+    want_g = jax.vmap(jax.grad(lambda v: jax.nn.leaky_relu(v, 0.2)))(xj)
+    assert torch.equal(y.detach(), torch.nn.functional.leaky_relu(
+        xt.detach(), 0.2))
+    np.testing.assert_array_equal(y.detach().float().numpy(),
+                                  np.asarray(want_y, np.float32))
+    np.testing.assert_array_equal(xt.grad.float().numpy(),
+                                  np.asarray(want_g, np.float32))
+    assert float(xt.grad[0]) == float(xt.grad[1]) == 1.0
 
 
 # -- refusals and layout ----------------------------------------------------
