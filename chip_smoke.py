@@ -68,6 +68,14 @@ exits non-zero:
      64) and serving (batch 512), the knob step against the plain 2D step
      (batch 8 and 64) with the kernels each launches, the x-mirror's cost,
      and profile lines by kernel;
+  13. right after phase 5, the repo root's entry points:
+     ``graft_entry.entry()`` on the card, its forward at the entry's own
+     ``p`` and at a batch of 512 (finite, one curl launch a call) against the plain curl on the
+     stream function it took (f32, and bf16), ``bench.run_device_bench``
+     (its launches exact), then the whole ``python -m
+     deepfluids_tpu_torch.bench`` in a subprocess: one line with the repo
+     root's ``bench.py`` keys and metric, and both device rates at least
+     0.8 of phase 5's batch-512 serving rate;
   8. ``sweep_on_device`` over the full 2D grid (21 000 fields, 2 GB) at
      batch 512, a batch against ``sweep_generator``, and its fields/s;
   9. one forward of config #5's generator with every knob (random gains
@@ -1820,6 +1828,16 @@ def kernel_timing(device, card: str, names: list[str],
                           f"{n * math.prod(shape) * sum(chans) * elt >> 20}"
                           f" MB)", flush=True)
                     del ring
+    if 1 in batches:
+        # The floor: a launch at [1, *resolution] moves next to nothing, so
+        # no kernel body at a larger batch can take less than its time.
+        for (name, b, dtype), t in out.items():
+            floor = out[(name, 1, dtype)]["ms"]
+            if b != 1:
+                print(f"phase 5 timing [{card}]: {name} batch {b} {dtype}: "
+                      f"{t['bound_ms'] / t['ms']:.2f} of its bound, "
+                      f"{max(t['bound_ms'], floor) / t['ms']:.2f} of max("
+                      f"bound, the batch-1 floor {floor:.4f} ms)", flush=True)
     return out
 
 
@@ -1924,6 +1942,116 @@ def profiles(device, serving: dict, timing: dict, train_timing: dict,
                          tt["step_ms"][8][0])
     except Exception as e:  # noqa: BLE001
         print(f"profile: not measured ({type(e).__name__}: {e})")
+
+
+# The keys of the line the repo root's bench.py prints, in its order: the
+# port's bench (python -m deepfluids_tpu_torch.bench) prints exactly these,
+# and the same metric.
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "vs_baseline_pinned",
+              "cpu_rate_pinned", "device_rate", "cpu_rate_median",
+              "cpu_rates", "loadavg_1m"]
+BENCH_METRIC = "2d_velocity_fields_per_sec_per_chip"
+# The bench's device rate, at least, as a share of phase 5's batch-512
+# serving rate in this process: less means a sync a batch or the plain curl.
+BENCH_MIN_SHARE = 0.8
+
+
+def phase_entry(device, card: str, serving_rate: float) -> dict:
+    """Phase 13, the repo root's entry points: ``graft_entry.entry()`` on the
+    card, its forward at the entry's own ``p`` and at a batch of 512, one
+    curl launch a call, against the plain curl on the very stream function
+    it took (f32, and the same forward on a bf16 one); ``bench``'s
+    ``run_device_bench`` here, its launches counted; and the whole ``python
+    -m deepfluids_tpu_torch.bench`` in a subprocess: its line's keys and
+    metric, and both device rates at least ``BENCH_MIN_SHARE`` of
+    ``serving_rate``."""
+    import torch
+
+    from deepfluids_tpu_torch import bench, graft_entry
+    from deepfluids_tpu_torch.ops import cuda_fd
+
+    fn, (model, p0) = graft_entry.entry()
+    if p0.device != device or next(model.parameters()).device != device:
+        raise AssertionError(f"entry() is not on {device}: {p0.device}")
+    gen = torch.Generator(device=device).manual_seed(13)
+    ps = [p0, torch.rand((512, 3), generator=gen, device=device) * 2 - 1]
+    shapes, out = set(), {"launches": {}}
+    cuda_fd.reset_launch_counts()
+    with torch.inference_mode(), recording_kernel_shapes(shapes):
+        us = [fn(model, p) for p in ps]
+    torch.cuda.synchronize()
+    out["launches"]["entry"] = dict(cuda_fd.launch_counts)
+    want = expected_launches({"curl2d_fused": len(ps)})
+    if out["launches"]["entry"] != want:
+        raise AssertionError(f"entry's fn launched {out['launches']['entry']}"
+                             f" in {len(ps)} calls, want {want}")
+    if not shapes <= set(KERNEL_SHAPES[2]):
+        raise AssertionError(f"entry gave the curl shapes phase 2 does not "
+                             f"check: {shapes - set(KERNEL_SHAPES[2])}")
+    for p, u in zip(ps, us):
+        if u.shape != (p.shape[0], 128, 96, 2) or u.dtype != torch.float32:
+            raise AssertionError(f"entry's fn gave {u.shape} {u.dtype}")
+        if not bool(torch.isfinite(u).all()):
+            raise AssertionError("entry's fn gave non-finite velocities")
+    # The comparisons, at the batch of 512 (the entry's own p meets zero
+    # biases, a zero field): fn against the plain curl on the stream
+    # function the model handed it (a forward hook keeps it), then fn on
+    # the same psi rounded to bf16.
+    plain = plain_version("curl2d_fused")
+    psis = []
+    hook = model.register_forward_hook(lambda m, i, o: psis.append(o))
+    try:
+        err32 = check_kernel("curl2d_fused", lambda q: fn(model, q),
+                             lambda q: plain(psis[-1]), [ps[1]], "entry f32")
+    finally:
+        hook.remove()
+    psi16 = psis[-1].to(torch.bfloat16)
+    err16 = check_kernel("curl2d_fused", lambda q: fn(lambda _: q, q), plain,
+                         [psi16], "entry bf16")
+    print(f"phase 13 entry [{card}]: graft_entry.entry() flagship bf16 on "
+          f"{p0.device}, fn at batch {', '.join(str(p.shape[0]) for p in ps)}"
+          f": finite, one curl2d_fused launch a call; against the plain "
+          f"curl on the same psi at 512, max abs err f32 {err32:.3e}, bf16 "
+          f"{err16:.3e} (bars {TOL_KERNEL:g}, one bf16 ulp)", flush=True)
+
+    cuda_fd.reset_launch_counts()
+    rate = bench.run_device_bench()
+    torch.cuda.synchronize()
+    out["launches"]["bench"] = dict(cuda_fd.launch_counts)
+    want = expected_launches({"curl2d_fused": (bench.WARMUP + bench.ITERS)
+                              * bench.CHUNKS})
+    if out["launches"]["bench"] != want:
+        raise AssertionError(f"run_device_bench launched "
+                             f"{out['launches']['bench']}, want {want}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepfluids_tpu_torch.bench"], cwd=REPO,
+        capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m deepfluids_tpu_torch.bench exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    rec = json.loads(lines[-1])
+    if len(lines) != 1 or list(rec) != BENCH_KEYS or (
+            rec["metric"] != BENCH_METRIC) or not rec["value"] > 0:
+        raise AssertionError(f"the bench printed {proc.stdout!r}, want one "
+                             f"line of keys {BENCH_KEYS}, metric "
+                             f"{BENCH_METRIC}, value > 0")
+    floor = BENCH_MIN_SHARE * serving_rate
+    for what, r in (("run_device_bench here", rate),
+                    ("the bench's line", rec["value"])):
+        if r < floor:
+            raise AssertionError(
+                f"{what}: {r:.1f} fields/s, below {BENCH_MIN_SHARE} x phase "
+                f"5's batch-512 serving rate {serving_rate:.1f}")
+    print(f"phase 13 bench [{card}]: run_device_bench here {rate:.1f} "
+          f"fields/s ({rate / serving_rate:.4f} of phase 5's batch-512 "
+          f"serving rate {serving_rate:.1f}; {bench.CHUNKS} x {bench.BATCH} "
+          f"a call, one sync); python -m deepfluids_tpu_torch.bench in "
+          f"{secs:.2f} s: {lines[-1]}", flush=True)
+    out.update(rate=rate, line=rec)
+    return out
 
 
 def phase_sweep_on_device(device, serving: dict, timing: dict, card: str,
@@ -4083,6 +4211,8 @@ def run(device, card: str) -> list[dict]:
             ["jacobian3d_fused", "curl3d_bwd", "jacobian3d_bwd"], (32, 8))
         timed("phase 5 LIQUID/KNOBS", phase_liquid_knob_timing, device,
               train, serving, train_timing, card)
+        entry = timed("phase 13", phase_entry, device, card,
+                      timing["2d"]["fields_per_s"])
         timed("phase 8", phase_sweep_on_device, device, serving, timing,
               card, root)
         timed("phase 9", phase_knobs3d, device)
@@ -4127,6 +4257,10 @@ def run(device, card: str) -> list[dict]:
         # (sptp_knobs_2d) and its resume in one process (sptp_resume_2d);
         # summed over ranks.
         for tag, counts in par["launches"].items():
+            by_path[tag] = counts[name]
+        # Phase 13: entry()'s forward and bench's run_device_bench in this
+        # process (the bench subprocess's launches are its own).
+        for tag, counts in entry["launches"].items():
             by_path[tag] = counts[name]
         par_paths = (("sp_sim_3d",) if nd == 3 else (
             "sp_sim_2d", "dp_nccl_2d", "dp_2d", "dp_grads_2d",

@@ -142,8 +142,8 @@ def supervise(child_args: list[str], max_restarts: int = 10,
             time.sleep(wait)
 
 
-def main(argv: list[str] | None = None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+def parse_args(argv: list[str]) -> tuple[argparse.Namespace, list[str]]:
+    """(the supervisor's own flags, the child's argv) of a command line."""
     if "--" in argv:
         split = argv.index("--")
         own, child = argv[:split], argv[split + 1:]
@@ -161,7 +161,11 @@ def main(argv: list[str] | None = None) -> int:
                         "do not consume --max_restarts)")
     p.add_argument("--num_processes", type=int, default=1,
                    help="ranks of the child (> 1: through launch_multihost)")
-    a = p.parse_args(own)
+    return p.parse_args(own), child
+
+
+def main(argv: list[str] | None = None) -> int:
+    a, child = parse_args(sys.argv[1:] if argv is None else argv)
     return supervise(child, a.max_restarts, a.restart_on, a.backoff,
                      a.max_outage_secs, a.num_processes)
 

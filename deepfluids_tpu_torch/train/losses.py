@@ -221,10 +221,12 @@ def autoencoder_loss_spatial(net_out: torch.Tensor, z: torch.Tensor,
     return loss + w3 * loss_p, aux
 
 
-def latent_window_loss(z_pred: torch.Tensor, z_true: torch.Tensor
+def latent_window_loss(z_pred: torch.Tensor, z_true: torch.Tensor,
+                       num_param: int | None = None
                        ) -> tuple[torch.Tensor, dict]:
     """Arch "nn" loss over a rollout window ``[W, B, z_num]``: the mean
     squared error of every code after the shared start (the parameter
-    block matches by construction, as in the reference)."""
+    block matches by construction, as in the reference).  ``num_param`` is
+    the reference's third argument, which it takes and ignores too."""
     loss = l2(z_pred[1:], z_true[1:])
     return loss, {"loss_z": loss}

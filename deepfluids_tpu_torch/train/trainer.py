@@ -424,7 +424,8 @@ class Trainer:
                          self.num_param, remat=c.remat_rollout,
                          noise_std=c.nn_noise, generator=gen, history=h,
                          noise_rows=(b * group.size, b * group.index))
-        loss, aux = losses.latent_window_loss(z_pred, z_seq)
+        loss, aux = losses.latent_window_loss(z_pred, z_seq,
+                                              self.num_param)
         if c.nn_field_w > 0:
             # Decode nn_field_frames evenly spaced window positions (the
             # first H are the shared seed codes) through the frozen decoder.

@@ -167,15 +167,18 @@ def _lzw_uncompressed(indices: np.ndarray) -> bytes:
     return b"\x08" + b"".join(bytes([len(b)]) + b for b in blocks) + b"\x00"
 
 
-def gif_bytes(frames: Sequence[np.ndarray]) -> bytes:
-    """Encode RGB uint8 frames [H, W, 3] as a GIF89a looping at 25 fps."""
+def gif_bytes(frames: Sequence[np.ndarray], fps: float = 25) -> bytes:
+    """Encode RGB uint8 frames [H, W, 3] as a GIF89a looping forever, each
+    frame shown round(100 / ``fps``) hundredths of a second (the format's
+    unit)."""
+    delay = struct.pack("<H", round(100 / fps))
     h, w, _ = frames[0].shape
     out = [b"GIF89a",
            struct.pack("<HHBBB", w, h, 0xF7, 0, 0),  # global 256-colour table
            gif_palette().tobytes(),
            b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"]  # loop forever
     for f in frames:
-        out += [b"\x21\xf9\x04\x00\x04\x00\x00\x00",  # 4/100 s a frame
+        out += [b"\x21\xf9\x04\x00" + delay + b"\x00\x00",  # its delay
                 b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0),
                 _lzw_uncompressed(quantize(f))]
     out.append(b"\x3b")
@@ -214,13 +217,17 @@ def save_image_grid(path: str, fields: Sequence[np.ndarray], ncol: int = 0,
 
 def save_gif(path: str, fields: Sequence[np.ndarray],
              mode: str = "vorticity", vmax: float | None = None,
-             projection: str = "slice") -> str:
-    """Assemble a field sequence into a GIF.  ``vmax=None`` takes ONE
-    colour scale over the whole sequence (the largest |rendered scalar|),
-    so a decaying plume fades instead of being renormalized every
-    frame."""
+             fps: float = 24, projection: str = "slice") -> str:
+    """Assemble a field sequence into a GIF at ``fps`` frames a second.
+    ``vmax=None`` takes ONE colour scale over the whole sequence (the
+    largest |rendered scalar|), so a decaying plume fades instead of being
+    renormalized every frame.
+
+    JAX's ``save_gif`` hands imageio ``duration=1 / fps``, seconds, which
+    imageio's Pillow plugin reads as milliseconds: its GIFs carry a delay
+    of 0.  This one writes the frame rate that was meant."""
     if vmax is None:
         vmax = max((float(np.abs(_render_scalar(f, mode, projection)[0])
                           .max()) for f in fields), default=0.0) or None
     return _write(path, gif_bytes([field_to_image(f, mode, vmax, projection)
-                                   for f in fields]))
+                                   for f in fields], fps))

@@ -11,6 +11,7 @@ JAX's dict for two sweep directories.
 
 import io
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -66,6 +67,80 @@ def test_gif_shares_one_scale_under_max_projection(tmp_path):
         assert not np.array_equal(
             images.field_to_image(frames[-1], mode, vmax, "max"),
             images.field_to_image(frames[-1], mode, projection="max"))
+
+
+def _gif_delays(data: bytes) -> list[int]:
+    """Each frame's delay, in 1/100 s, from its Graphics Control Extension
+    (None for a frame without one): a walk over the GIF's blocks."""
+    def skip_sub_blocks(i):
+        while data[i]:
+            i += data[i] + 1
+        return i + 1
+
+    def table(flags):
+        return 3 * 2 ** ((flags & 7) + 1) if flags & 0x80 else 0
+
+    assert data[:6] in (b"GIF87a", b"GIF89a")
+    i, delays, pending = 13 + table(data[10]), [], None
+    while data[i] != 0x3B:
+        if data[i] == 0x21:                       # an extension
+            if data[i + 1] == 0xF9:
+                pending = struct.unpack("<H", data[i + 4:i + 6])[0]
+            i = skip_sub_blocks(i + 2)
+        elif data[i] == 0x2C:                     # an image
+            delays.append(pending)
+            pending = None
+            i = skip_sub_blocks(i + 10 + table(data[i + 9]) + 1)
+        else:
+            raise AssertionError(f"byte {data[i]:#x} at {i}: not a block")
+    return delays
+
+
+@pytest.mark.parametrize("fps,delay", [(24, 4), (10, 10)])
+def test_gif_frame_rate(tmp_path, fps, delay):
+    """``save_gif``'s ``fps`` is the delay round(100 / fps) of every frame,
+    and the frames are the pixels JAX's ``save_gif`` renders."""
+    Image = pytest.importorskip("PIL.Image")
+    frames = [_field(SHAPES["2d"], k) * s
+              for k, s in enumerate((1.0, 0.5, 0.1))]
+    path = images.save_gif(str(tmp_path / "port.gif"), frames, "vorticity",
+                           None, fps)
+    with open(path, "rb") as f:
+        assert _gif_delays(f.read()) == [delay] * len(frames)
+    vmax = max(float(np.abs(jimages._render_scalar(f, "vorticity",
+                                                   "slice")[0]).max())
+               for f in frames)
+    gif, pal = Image.open(path), images.gif_palette()
+    for k, f in enumerate(frames):
+        gif.seek(k)
+        want = jimages.field_to_image(f, "vorticity", vmax)
+        np.testing.assert_array_equal(np.asarray(gif.convert("RGB")),
+                                      pal[images.quantize(want)])
+
+
+def test_gif_default_rate_is_unchanged():
+    """25 fps, 4/100 s a frame, as before ``fps`` existed; ``save_gif``'s
+    default (JAX's 24 fps) rounds to the same delay."""
+    frames = [images.field_to_image(_field(SHAPES["2d"], k), "vorticity")
+              for k in range(2)]
+    data = images.gif_bytes(frames)
+    assert data == images.gif_bytes(frames, 25) == images.gif_bytes(
+        frames, 24)
+    assert _gif_delays(data) == [4, 4]
+
+
+@pytest.mark.parametrize("fps", [24, 10])
+def test_jax_save_gif_writes_a_delay_of_zero(tmp_path, fps):
+    """The reference's fault that the port does not copy (ROADMAP, held
+    divergences): JAX's ``save_gif`` passes ``duration=1 / fps`` seconds,
+    which imageio's Pillow plugin takes as milliseconds: every frame's
+    delay is 0 or absent (a decoder reads an absent one as 0)."""
+    pytest.importorskip("imageio")
+    frames = [_field(SHAPES["2d"], k) for k in range(3)]
+    path = jimages.save_gif(str(tmp_path / "jax.gif"), frames, fps=fps)
+    with open(path, "rb") as f:
+        delays = _gif_delays(f.read())
+    assert len(delays) == 3 and set(delays) <= {None, 0} and 0 in delays
 
 
 def test_png_writers_take_the_projection(tmp_path):

@@ -141,3 +141,24 @@ def test_rollout_rejects(z_shape, history, kw, match):
     with pytest.raises(ValueError, match=match):
         rollout(tm, torch.zeros(z_shape), torch.zeros(T, B, P), P,
                 history=history, **kw)
+
+
+def test_window_loss_takes_jax_arguments():
+    """``latent_window_loss(z_pred, z_true, num_param)``, JAX's call, gives
+    JAX's value; the third argument is ignored in both."""
+    from deepfluids_tpu.train.losses import latent_window_loss as jax_loss
+    from deepfluids_tpu_torch.train.losses import latent_window_loss
+
+    rng = np.random.default_rng(5)
+    zp, zt = (rng.standard_normal((6, B, Z)).astype(np.float32)
+              for _ in range(2))
+    want, jaux = jax_loss(jnp.asarray(zp), jnp.asarray(zt), P)
+    got, aux = latent_window_loss(torch.from_numpy(zp), torch.from_numpy(zt),
+                                  P)
+    assert float(got) == pytest.approx(float(want), rel=2e-6)
+    assert float(aux["loss_z"]) == pytest.approx(float(jaux["loss_z"]),
+                                                 rel=2e-6)
+    assert float(latent_window_loss(torch.from_numpy(zp),
+                                    torch.from_numpy(zt))[0]) == float(got)
+    assert float(latent_window_loss(torch.from_numpy(zp),
+                                    torch.from_numpy(zt), 0)[0]) == float(got)

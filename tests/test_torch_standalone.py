@@ -45,6 +45,9 @@ _IMPORT_ALL = _REFUSE + """
 import deepfluids_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     deepfluids_tpu_torch.__path__, "deepfluids_tpu_torch.")]
+# the twins of the repo root's entry points among them
+assert {"deepfluids_tpu_torch.bench",
+        "deepfluids_tpu_torch.graft_entry"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -58,7 +61,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split()[-1]) >= 48   # every module was imported
+    assert int(out.stdout.split()[-1]) >= 50   # every module was imported
 
 
 # Every tool of the port is a module of its tools subpackage, and a few run
