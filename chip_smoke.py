@@ -16,8 +16,9 @@ exits non-zero:
 
   1. device and build: the card, its power limit, nvcc build of csrc/*.cu;
   2. each of the eight kernels against its plain PyTorch version on the
-     card, at the serving and training shapes and odd ones (3D: ragged
-     bricks, rows of no 16-byte multiple, unaligned storage), f32 and bf16,
+     card, at the serving and training shapes and odd ones (ragged 2D
+     widths and row tiles, 3D bricks, rows of no 16-byte multiple,
+     unaligned storage), f32 and bf16 (the 2D curls bit-equal in f32),
      jacobian3d_bwd also without the vorticity's cotangent, plus the fd2d
      and fd3d goldens; the backward kernels refuse extents < 3; gradients
      through ``curl2d_p`` / ``jacobian2d_p`` / ``curl3d_p`` /
@@ -181,7 +182,11 @@ K_F64 = 2.0
 # the serving sweep's (--test_batch_size), 512 the timed one; 4 is the
 # matched datagen's scene batch, 16 and 64 its multigrid setup's probe
 # batches (diagonal colours, the coarsest level's dense probe); (4, 2, 5) is
-# below the backward kernels' minimum extent.  3D: config #5's grid at the
+# below the backward kernels' minimum extent; for the curls' row tiles,
+# widths of no multiple of 4 or 8 (37, 13: runs of one point), odd heights
+# (a ragged last tile), a row wider than a block's threads (1100), and odd
+# heights where curl2d_bwd takes 16-byte runs (88 x 129 x 96 in f32 and
+# bf16, 48 x 129 x 96 in bf16 only).  3D: config #5's grid at the
 # same batches and at 48 (the 3D setup's probe batch), odd extents, the smallest backward grid, D, H or W = 2, and
 # for the backward kernels' bricks: rows whose bytes are no multiple of 16
 # (W = 37, 113, 5, 11), ragged last bricks along z and y, D below one brick
@@ -193,16 +198,22 @@ KERNEL_SHAPES = {
     2: [(1, 128, 96), (2, 128, 96), (4, 128, 96), (5, 128, 96),
         (8, 128, 96), (16, 128, 96), (32, 128, 96), (64, 128, 96),
         (128, 128, 96), (512, 128, 96),
-        (3, 8, 8), (2, 16, 12), (4, 2, 5), (2, 32, 24), (4, 32, 24)],
+        (3, 8, 8), (2, 16, 12), (4, 2, 5), (2, 32, 24), (4, 32, 24),
+        (2, 9, 37), (3, 7, 13), (3, 5, 96), (1, 5, 1100), (48, 129, 96),
+        (88, 129, 96)],
     3: [(1, 32, 64, 112), (4, 32, 64, 112), (8, 32, 64, 112),
         (32, 32, 64, 112), (48, 32, 64, 112), (1, 8, 12, 16),
         (2, 5, 6, 7), (1, 3, 3, 3), (1, 2, 6, 7), (1, 5, 2, 7),
         (1, 5, 6, 2), (2, 9, 13, 37), (1, 33, 65, 113), (3, 4, 7, 5),
         (2, 3, 9, 11), (1, 4, 5, 1100)],
 }
-# Shapes at which the 3D kernels also take inputs whose storage starts one
-# element past an aligned address (a view into a larger buffer).
-UNALIGNED_SHAPES = [(2, 9, 13, 37), (8, 32, 64, 112)]
+# Shapes at which the kernels also take inputs whose storage starts one
+# element (3D) or one point (2D: the wrappers refuse storage not aligned to
+# a point's channels) past an aligned address, a view into a larger buffer.
+UNALIGNED_SHAPES = {2: [(2, 9, 37), (8, 128, 96)],
+                    3: [(2, 9, 13, 37), (8, 32, 64, 112)]}
+# Kernels held bit-equal to their plain versions in f32 (max abs err 0).
+EXACT_KERNELS = ("curl2d_fused", "curl2d_bwd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -575,17 +586,22 @@ def phase_kernels(device) -> dict:
                                          f"{shape}")
                 seen[name] = max(seen[name], check_kernel(
                     name, getattr(cuda_fd, name), plain, xs, str(shape)))
-            if nd == 2:
-                continue
-            # Storage one element past an aligned address.
-            for shape in UNALIGNED_SHAPES:
-                xs = [torch.randn(math.prod(shape) * c + 1, generator=gen,
-                                  device=device).to(dtype)[1:].view(
-                                      shape + (c,))
-                      for c in KERNELS[name][2]]
+            # Storage one element (3D) or one point (2D) past an aligned
+            # address.
+            for shape in UNALIGNED_SHAPES[nd]:
+                xs = []
+                for c in KERNELS[name][2]:
+                    skip = 1 if nd == 3 else c
+                    xs.append(torch.randn(
+                        math.prod(shape) * c + skip, generator=gen,
+                        device=device).to(dtype)[skip:].view(shape + (c,)))
                 seen[name] = max(seen[name], check_kernel(
                     name, getattr(cuda_fd, name), plain, xs,
                     f"{shape} unaligned"))
+    for name in EXACT_KERNELS:
+        if worst[name] != 0.0:
+            raise AssertionError(f"{name} f32 is {worst[name]} from its plain "
+                                 f"version, not bit-equal")
     # jacobian3d_bwd without the vorticity's cotangent (the training loss's
     # call): J's alone, against the plain version given zeros.
     no_vort = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -672,11 +688,10 @@ def phase_kernels(device) -> dict:
                                  f"{div_max}")
     for nd in (2, 3):
         names = [n for n in KERNELS if KERNELS[n][3] == nd]
-        extra = ("" if nd == 2 else
-                 f" + unaligned storage at {UNALIGNED_SHAPES}; "
-                 f"jacobian3d_bwd without a vorticity cotangent max abs err "
-                 f"f32 {no_vort[torch.float32]} bf16 "
-                 f"{no_vort[torch.bfloat16]}")
+        extra = f" + unaligned storage at {UNALIGNED_SHAPES[nd]}" + (
+            f" (f32 bit-equal: {', '.join(EXACT_KERNELS)})" if nd == 2 else
+            f"; jacobian3d_bwd without a vorticity cotangent max abs err "
+            f"f32 {no_vort[torch.float32]} bf16 {no_vort[torch.bfloat16]}")
         print(f"phase 2 kernel vs plain {nd}D: ok  {len(names)} kernels x "
               f"{len(KERNEL_SHAPES[nd])} shapes x f32/bf16{extra}; f32 max "
               f"abs err { {n: worst[n] for n in names} } (tol fwd "

@@ -32,10 +32,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# Besides the serving and training shapes: widths of no multiple of 4 or 8
+# (runs of one point), an odd height, and a row wider than a block's
+# threads.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 128, 96), (32, 128, 96), (3, 8, 8),
-                                   (2, 16, 12), (2, 2, 2)])
+                                   (2, 16, 12), (2, 2, 2), (2, 9, 37),
+                                   (3, 7, 13), (2, 5, 96), (1, 5, 1100)])
 def test_curl2d_kernel_matches_plain(cuda_device, shape, dtype):
     b, h, w = shape
     psi = torch.from_numpy(np.random.default_rng(6).standard_normal(
@@ -82,7 +86,14 @@ def test_generator_golden_through_kernel(cuda_device):
 
 # --- jacobian2d_fused, curl2d_bwd, jacobian2d_bwd --------------------------
 
-SHAPES = [(1, 128, 96), (32, 128, 96), (3, 8, 8), (2, 16, 12), (2, 3, 5)]
+# Besides the serving and training shapes: widths of no multiple of 4 or 8,
+# odd heights (a ragged last tile of curl2d_bwd's two rows), a row wider
+# than a block's threads, and fields large enough for curl2d_bwd's 16-byte
+# runs (1 M points in f32, 0.5 M in bf16; 48 x 129 x 96 takes them in bf16
+# only).
+SHAPES = [(1, 128, 96), (32, 128, 96), (3, 8, 8), (2, 16, 12), (2, 3, 5),
+          (2, 9, 37), (3, 7, 13), (3, 5, 96), (1, 5, 1100), (96, 128, 96),
+          (48, 129, 96)]
 BF16_ULP = 2.0 ** -7      # one bf16 ulp, relative to the value, at most
 
 
@@ -119,6 +130,36 @@ def test_kernel_matches_plain(cuda_device, op, plain, tol, shape, dtype):
         else:
             err = (g.float() - wt.to(dtype).float()).abs()
             assert bool((err <= BF16_ULP * wt.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 9, 37), (8, 128, 96), (96, 128, 96)])
+@pytest.mark.parametrize("op,plain,chans", [
+    ("curl2d_fused", fd.curl2d, 1), ("curl2d_bwd", fd.curl2d_bwd, 2)])
+def test_curl2d_kernels_unaligned_storage(cuda_device, op, plain, chans,
+                                          shape, dtype):
+    # Storage one point past an aligned address (a view into a larger
+    # buffer): one element for the curl, one (u, v) pair for its transpose,
+    # whose wrapper refuses storage not aligned to a point.  No 16-byte run
+    # can be taken; f32 stays bit-equal.
+    rng = np.random.default_rng(14)
+    n = int(np.prod(shape)) * chans
+    buf = torch.from_numpy(rng.standard_normal(n + chans).astype(
+        np.float32)).to(cuda_device, dtype)
+    x = buf[chans:].view(shape + (chans,))
+    before = cuda_fd.launch_counts[op]
+    got = getattr(cuda_fd, op)(x)
+    torch.cuda.synchronize()
+    assert cuda_fd.launch_counts[op] == before + 1
+    want = plain(x.float())
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        _close_to_plain(got, want, dtype, 0.0)
+    if chans == 2:
+        with pytest.raises(ValueError):
+            getattr(cuda_fd, op)(buf[1:n + 1].view(shape + (chans,)))
 
 
 @pytest.mark.cuda

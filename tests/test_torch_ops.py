@@ -37,7 +37,8 @@ def test_fd_matches_jax(name, channels):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6)
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 12), (1, 128, 96), (3, 8, 8)])
+@pytest.mark.parametrize("shape", [(2, 16, 12), (1, 128, 96), (3, 8, 8),
+                                   (2, 9, 37), (3, 7, 13)])
 def test_curl2d_fused_cpu_matches_pallas(shape):
     b, h, w = shape
     psi = np.random.default_rng(4).standard_normal(
@@ -113,7 +114,8 @@ def test_fdt_is_the_transpose_of_fdiff(n, dim):
                                rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 12), (1, 128, 96), (3, 3, 5)])
+@pytest.mark.parametrize("shape", [(2, 16, 12), (1, 128, 96), (3, 3, 5),
+                                   (2, 9, 37), (3, 7, 13)])
 def test_bwd_plain_matches_pallas(shape):
     from deepfluids_tpu.ops import pallas_fd
 
@@ -129,7 +131,8 @@ def test_bwd_plain_matches_pallas(shape):
                                              jnp.asarray(gw))), atol=1e-6)
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 12), (1, 128, 96)])
+@pytest.mark.parametrize("shape", [(2, 16, 12), (1, 128, 96), (2, 9, 37),
+                                   (3, 7, 13)])
 def test_curl2d_p_grad_matches_jax(shape):
     import jax
 
