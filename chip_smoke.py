@@ -18,8 +18,9 @@ exits non-zero:
   2. each of the eight kernels against its plain PyTorch version on the
      card, at the serving and training shapes and odd ones (ragged 2D
      widths and row tiles, 3D bricks, rows of no 16-byte multiple,
-     unaligned storage), f32 and bf16 (the 2D curls bit-equal in f32),
-     jacobian3d_bwd also without the vorticity's cotangent, plus the fd2d
+     unaligned storage), f32 and bf16 (the four 2D kernels bit-equal in
+     f32), jacobian2d_bwd and jacobian3d_bwd also without the vorticity's
+     cotangent, plus the fd2d
      and fd3d goldens; the backward kernels refuse extents < 3; gradients
      through ``curl2d_p`` / ``jacobian2d_p`` / ``curl3d_p`` /
      ``jacobian3d_p`` (also with one output unused) against autograd of
@@ -213,7 +214,12 @@ KERNEL_SHAPES = {
 UNALIGNED_SHAPES = {2: [(2, 9, 37), (8, 128, 96)],
                     3: [(2, 9, 13, 37), (8, 32, 64, 112)]}
 # Kernels held bit-equal to their plain versions in f32 (max abs err 0).
-EXACT_KERNELS = ("curl2d_fused", "curl2d_bwd")
+EXACT_KERNELS = ("curl2d_fused", "curl2d_bwd", "jacobian2d_fused",
+                 "jacobian2d_bwd")
+# The transposes that also run without the vorticity's cotangent (the
+# training loss's call, J's alone): name -> (J's channels, the
+# vorticity's).
+NO_VORT = {"jacobian2d_bwd": (4, 1), "jacobian3d_bwd": (9, 3)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -380,9 +386,9 @@ KERNELS = {
 }
 # Channels each kernel must read and write once per point (its minimum
 # traffic): curl2d 1 -> 2, jacobian2d 2 -> 4 + 1, curl2d_bwd 2 -> 1,
-# jacobian2d_bwd 4 + 1 -> 2; curl3d 3 -> 3, jacobian3d 3 -> 9 + 3,
-# curl3d_bwd 3 -> 3, jacobian3d_bwd 9 + 3 -> 3 (9 -> 3 without the
-# vorticity's cotangent, as the training loss calls it).
+# jacobian2d_bwd 4 + 1 -> 2 (4 -> 2 without the vorticity's cotangent, as
+# the training loss calls it); curl3d 3 -> 3, jacobian3d 3 -> 9 + 3,
+# curl3d_bwd 3 -> 3, jacobian3d_bwd 9 + 3 -> 3 (9 -> 3 likewise).
 CHANNELS_MOVED = {"curl2d_fused": 3, "jacobian2d_fused": 7,
                   "curl2d_bwd": 3, "jacobian2d_bwd": 7, "curl3d_fused": 6,
                   "jacobian3d_fused": 15, "curl3d_bwd": 6,
@@ -602,40 +608,55 @@ def phase_kernels(device) -> dict:
         if worst[name] != 0.0:
             raise AssertionError(f"{name} f32 is {worst[name]} from its plain "
                                  f"version, not bit-equal")
-    # jacobian3d_bwd without the vorticity's cotangent (the training loss's
-    # call): J's alone, against the plain version given zeros.
-    no_vort = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    plain = plain_version("jacobian3d_bwd")
-    for dtype in no_vort:
-        for shape in KERNEL_SHAPES[3]:
+    # The jacobians' transposes without the vorticity's cotangent (the
+    # training loss's call): J's alone, against the plain version given
+    # zeros; jacobian2d_bwd bit-equal in f32, also from unaligned storage.
+    no_vort = {(n, dt): 0.0 for n in NO_VORT
+               for dt in (torch.float32, torch.bfloat16)}
+    for (name, dtype) in no_vort:
+        plain, (cj, cw) = plain_version(name), NO_VORT[name]
+        nd = KERNELS[name][3]
+        for shape, skip in ([(s, 0) for s in KERNEL_SHAPES[nd]]
+                            + [(s, cj) for s in UNALIGNED_SHAPES[nd]]):
             if min(shape[1:]) < 3:
                 continue
-            gj = torch.randn(shape + (9,), generator=gen,
-                             device=device).to(dtype)
-            no_vort[dtype] = max(no_vort[dtype], check_kernel(
-                "jacobian3d_bwd", lambda g: cuda_fd.jacobian3d_bwd(g, None),
-                lambda g: plain(g, g.new_zeros(g.shape[:-1] + (3,))), [gj],
-                f"{shape} without a vorticity cotangent"))
+            gj = torch.randn(math.prod(shape) * cj + skip, generator=gen,
+                             device=device).to(dtype)[skip:].view(
+                                 shape + (cj,))
+            no_vort[name, dtype] = max(no_vort[name, dtype], check_kernel(
+                name, lambda g, f=getattr(cuda_fd, name): f(g, None),
+                lambda g, cw=cw: plain(g, g.new_zeros(g.shape[:-1] + (cw,))),
+                [gj], f"{shape} skip {skip} without a vorticity cotangent"))
+        if name in EXACT_KERNELS and no_vort[name, torch.float32] != 0.0:
+            raise AssertionError(f"{name} without a vorticity cotangent f32 "
+                                 f"is {no_vort[name, torch.float32]} from its "
+                                 f"plain version, not bit-equal")
     # Gradients through the autograd Functions against autograd of the
     # plain ops: the JAX tests' shapes and the flagship training batches.
     grad_err = {2: 0.0, 3: 0.0}
-    # Autograd through jacobian3d_p with one output unused: its cotangent
-    # arrives as None (J's alone; the vorticity's alone, J's made zeros).
-    for shape in ((2, 5, 6, 7), (8, 32, 64, 112)):
-        x = torch.randn(shape + (3,), generator=gen, device=device)
+    # Autograd through jacobian{2,3}d_p with one output unused: its
+    # cotangent arrives as None (J's alone; the vorticity's alone, J's made
+    # zeros).
+    for nd, shape, fn, plain_fn, chans, outs in (
+            (2, (2, 16, 12), cuda_fd.jacobian2d_p, fd.jacobian2d, 2, (4, 1)),
+            (2, (8, 128, 96), cuda_fd.jacobian2d_p, fd.jacobian2d, 2, (4, 1)),
+            (3, (2, 5, 6, 7), cuda_fd.jacobian3d_p, fd.jacobian3d, 3, (9, 3)),
+            (3, (8, 32, 64, 112), cuda_fd.jacobian3d_p, fd.jacobian3d, 3,
+             (9, 3))):
+        x = torch.randn(shape + (chans,), generator=gen, device=device)
         for used in (0, 1):
-            cot = torch.randn(shape + ((9, 3)[used],), generator=gen,
+            cot = torch.randn(shape + (outs[used],), generator=gen,
                               device=device)
             grads = []
-            for f in (cuda_fd.jacobian3d_p, fd.jacobian3d):
+            for f in (fn, plain_fn):
                 a = x.clone().requires_grad_()
                 f(a)[used].backward(cot)
                 grads.append(a.grad)
             err = float((grads[0] - grads[1]).abs().max())
             if not err <= TOL_GRAD:
-                raise AssertionError(f"autograd through jacobian3d_p, only "
+                raise AssertionError(f"autograd through {fn.__name__}, only "
                                      f"output {used} used, {shape}: {err}")
-            grad_err[3] = max(grad_err[3], err)
+            grad_err[nd] = max(grad_err[nd], err)
     for nd, shape, fn, plain_fn, chans, cot in (
             (2, (2, 16, 12), cuda_fd.curl2d_p, fd.curl2d, 1, [2]),
             (2, (8, 128, 96), cuda_fd.curl2d_p, fd.curl2d, 1, [2]),
@@ -688,17 +709,19 @@ def phase_kernels(device) -> dict:
                                  f"{div_max}")
     for nd in (2, 3):
         names = [n for n in KERNELS if KERNELS[n][3] == nd]
-        extra = f" + unaligned storage at {UNALIGNED_SHAPES[nd]}" + (
-            f" (f32 bit-equal: {', '.join(EXACT_KERNELS)})" if nd == 2 else
-            f"; jacobian3d_bwd without a vorticity cotangent max abs err "
-            f"f32 {no_vort[torch.float32]} bf16 {no_vort[torch.bfloat16]}")
+        jbwd = f"jacobian{nd}d_bwd"
+        extra = (f" + unaligned storage at {UNALIGNED_SHAPES[nd]}" + (
+            f" (f32 bit-equal: {', '.join(EXACT_KERNELS)})" if nd == 2
+            else "") + f"; {jbwd} without a vorticity cotangent max abs err "
+            f"f32 {no_vort[jbwd, torch.float32]} bf16 "
+            f"{no_vort[jbwd, torch.bfloat16]}")
         print(f"phase 2 kernel vs plain {nd}D: ok  {len(names)} kernels x "
               f"{len(KERNEL_SHAPES[nd])} shapes x f32/bf16{extra}; f32 max "
               f"abs err { {n: worst[n] for n in names} } (tol fwd "
               f"{TOL_KERNEL}, bwd {TOL_GRAD}); bf16 within one ulp of f32 "
               f"math (max abs err { {n: bf16_worst[n] for n in names} }); "
               f"bwd refuses extent < 3; autograd vs plain autograd "
-              f"(jacobian3d_p also with one output unused) max abs err "
+              f"(jacobian{nd}d_p also with one output unused) max abs err "
               f"{grad_err[nd]:.3e} (tol {TOL_GRAD}); fd{nd}d golden (u, J, "
               f"vort) L2 {golden[nd][0]:.3e}, interior div "
               f"{golden[nd][1]:.3e}", flush=True)
@@ -1950,9 +1973,10 @@ def kernel_timing(device, card: str, names: list[str],
     """Each kernel alone at ``[b, *resolution, .]`` for each batch, f32 and
     bf16, against its plain version: device time from the profiler, inputs
     cold (a ring of input sets of RING_BYTES), and the kernel's bound.
-    jacobian3d_bwd also without the vorticity's cotangent, as the training
-    loss calls it.  At the timed batch (the first of ``batches``), f32, the
-    plain version under ``torch.compile`` joins the same window."""
+    The jacobians' transposes also without the vorticity's cotangent, as
+    the training loss calls them.  At the timed batch (the first of
+    ``batches``), f32, the plain version under ``torch.compile`` joins the
+    same window."""
     import torch
 
     from deepfluids_tpu_torch.ops import cuda_fd
@@ -1963,11 +1987,13 @@ def kernel_timing(device, card: str, names: list[str],
         fn, plain = getattr(cuda_fd, name), plain_version(name)
         # (label, kernel, plain version, input channels, channels moved)
         variants = [("", fn, plain, KERNELS[name][2], CHANNELS_MOVED[name])]
-        if name == "jacobian3d_bwd":
+        if name in NO_VORT:
+            cj, cw = NO_VORT[name]
             variants.append((
-                " without vort", lambda gj: fn(gj, None),
-                lambda gj: plain(gj, gj.new_zeros(gj.shape[:-1] + (3,))),
-                [9], CHANNELS_MOVED[name] - 3))
+                " without vort", lambda gj, fn=fn: fn(gj, None),
+                lambda gj, plain=plain, cw=cw: plain(
+                    gj, gj.new_zeros(gj.shape[:-1] + (cw,))),
+                [cj], CHANNELS_MOVED[name] - cw))
         # The kernel's CUDA function, as the profiler names it.
         cuda_name = name.replace("_fused", "") + "_kernel"
         for b in batches:

@@ -23,33 +23,35 @@
 // input dtype (f32 or bf16), as the TPU kernels do.
 //
 // What bounds them: memory.  Each point does a handful of subtractions for
-// 12-40 bytes moved (f32): at B = 512 and 128x96 a call moves 75-240 MB.
+// 12-28 bytes moved (f32): at B = 512 and 128x96 a call moves 75-176 MB.
+// The TPU versions transposed to NCHW and built the edges with rolls and
+// masks only because Mosaic cannot lower sub-tile concatenates; none of
+// that carries over.
 //
-// The jacobians (#2, #4) keep the traffic at that minimum with one thread
-// per (b, y, x), consecutive threads along W so loads and stores coalesce;
-// the channels of a point are read and written as one vector (float2 /
-// float4, or bf16x2 / 4 x bf16); the neighbours at x+-1 and y+-1 are loaded
-// by neighbouring threads, so they come from L1/L2 rather than device
-// memory; no transposes around the kernels.  The TPU versions transposed to
-// NCHW and built the edges with rolls and masks only because Mosaic cannot
-// lower sub-tile concatenates; none of that carries over.
+// One thread a point spent more instructions on its own index (a 64-bit
+// division and modulo) and on narrow accesses than on the bytes.  So all
+// four run over row tiles: a thread owns a run of VEC consecutive points of
+// a row in each of R consecutive rows.  It loads the tile's rows and the
+// halo rows the y-stencil needs, each once and before its first store,
+// keeps them in registers, and takes a neighbour along x outside the run
+// with one load that L1 serves (the next thread reads that line).  The
+// transposed stencil (fdt) reads the point after only at the second last,
+// so the jacobian's transpose loads the row below a tile, and the point
+// after a run, only there.  (b, y, x0) come from blockIdx / threadIdx in
+// 32-bit arithmetic without a division; only the offsets are 64-bit.  R
+// and VEC are the fastest that tools/curl_tiles.py and
+// tools/jacobian_tiles.py measured on the H100 (PERF.md, constants below):
 //
-// The two curls (#1 and its transpose #3) move the fewest bytes, 12 a point
-// in f32 and 6 in bf16 (psi read, (u, v) written, or the reverse), so one
-// thread a point spent more issue slots on its own index (a 64-bit division
-// and modulo) and on 4-byte accesses than on the bytes, and reached 0.62 of
-// the bound.  They run over row tiles instead: a thread owns a run of VEC
-// points of a row (4 in f32, 8 in bf16: one 16-byte vector of psi, two of
-// (u, v)) in each of R consecutive rows, R = 1 for the curl and 2 for its
-// transpose.  It loads the tile's rows and the halo rows the y-stencil
-// needs, each once and before its first store, keeps them in registers, and
-// takes a neighbour along x outside the run with one scalar load that L1
-// serves (the next thread reads that line).  (b, y, x0) come from blockIdx /
-// threadIdx in 32-bit arithmetic without a division; only the offsets are
-// 64-bit.  Where W is no multiple of VEC, the storage is not 16-byte
-// aligned, or (the transpose) the launch is small, the same kernel runs
-// with VEC = 1.  The arithmetic, and so every f32 bit, is the one point a
-// thread kernels' and the plain versions'.
+//   curl                 R = 1, VEC = 16 / sizeof(T): 16 bytes of psi
+//   curl's transpose     R = 2, the same, from 2^18 x sizeof(T) points on
+//   jacobian             R = 2, VEC = 4 / sizeof(T): 16 bytes of J
+//   jacobian's transpose R = 2, VEC = 2, from 2^18 x sizeof(T) points on
+//
+// Where W is no multiple of VEC, the storage is not 16-byte aligned, or (a
+// transpose) the launch is small, the same kernel runs with VEC = 1.  The
+// arithmetic, and so every f32 bit, is the plain versions'.  Without the
+// vorticity's cotangent (the training loss uses J alone) the jacobian's
+// transpose reads J's alone: 6 channels a point, not 7.
 
 #include <algorithm>
 #include <cstdint>
@@ -58,116 +60,7 @@
 
 namespace {
 
-struct __align__(8) bf16x4 {
-  __nv_bfloat162 lo, hi;
-};
-
-// The two channels of point i of a [.., 2] tensor.
-__device__ __forceinline__ float2 load2(const float* p, long long i) {
-  return reinterpret_cast<const float2*>(p)[i];
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p, long long i) {
-  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[i]);
-}
-
-// The four channels of point i of a [.., 4] tensor.
-__device__ __forceinline__ float4 load4(const float* p, long long i) {
-  return reinterpret_cast<const float4*>(p)[i];
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, long long i) {
-  const bf16x4 q = reinterpret_cast<const bf16x4*>(p)[i];
-  const float2 a = __bfloat1622float2(q.lo);
-  const float2 b = __bfloat1622float2(q.hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store2(float* p, long long i, float a,
-                                       float b) {
-  reinterpret_cast<float2*>(p)[i] = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, long long i, float a,
-                                       float b) {
-  reinterpret_cast<__nv_bfloat162*>(p)[i] = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ void store4(float* p, long long i, float a,
-                                       float b, float c, float d) {
-  reinterpret_cast<float4*>(p)[i] = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, long long i, float a,
-                                       float b, float c, float d) {
-  bf16x4 q;
-  q.lo = __floats2bfloat162_rn(a, b);
-  q.hi = __floats2bfloat162_rn(c, d);
-  reinterpret_cast<bf16x4*>(p)[i] = q;
-}
-
-// Point index i -> (x, y) and the flat indices of its neighbours.  At an
-// edge the missing neighbour is the point itself (fdt does not read it).
-struct Point {
-  int x, y;
-  long long xm, xp, ym, yp;
-};
-
-__device__ __forceinline__ Point locate(long long i, int H, int W) {
-  Point p;
-  p.x = (int)(i % W);
-  p.y = (int)((i / W) % H);
-  p.xm = i - (p.x > 0);
-  p.xp = i + (p.x < W - 1);
-  p.ym = i - (p.y > 0 ? W : 0);
-  p.yp = i + (p.y < H - 1 ? W : 0);
-  return p;
-}
-
-template <typename T>
-__global__ void jacobian2d_kernel(const T* __restrict__ vel,
-                                  T* __restrict__ jac, T* __restrict__ vort,
-                                  long long n, int H, int W) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int x = (int)(i % W);
-  const int y = (int)((i / W) % H);
-  const long long row = i - x;                     // point (b, y, 0)
-  const long long col = i - (long long)y * W;      // point (b, 0, x)
-  const int xl = min(x, W - 2);
-  const int yl = min(y, H - 2);
-  const float2 x0 = load2(vel, row + xl);
-  const float2 x1 = load2(vel, row + xl + 1);
-  const float2 y0 = load2(vel, col + (long long)yl * W);
-  const float2 y1 = load2(vel, col + (long long)(yl + 1) * W);
-  const float dudx = x1.x - x0.x;
-  const float dvdx = x1.y - x0.y;
-  const float dudy = y1.x - y0.x;
-  const float dvdy = y1.y - y0.y;
-  store4(jac, i, dudx, dudy, dvdx, dvdy);
-  store1(vort, i, dvdx - dudy);    // f32, rounded once
-}
-
-// u_bar = fdt_x(J0) + fdt_y(J1) - fdt_y(w_bar)
-// v_bar = fdt_x(J2) + fdt_y(J3) + fdt_x(w_bar)
-template <typename T>
-__global__ void jacobian2d_bwd_kernel(const T* __restrict__ gj,
-                                      const T* __restrict__ gw,
-                                      T* __restrict__ out, long long n, int H,
-                                      int W) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Point p = locate(i, H, W);
-  const float4 c = load4(gj, i);
-  const float4 l = load4(gj, p.xm);
-  const float4 r = load4(gj, p.xp);
-  const float4 d = load4(gj, p.ym);
-  const float4 u = load4(gj, p.yp);
-  const float wc = to_f32(gw[i]);
-  const float ub = fdt(l.x, c.x, r.x, p.x, W) + fdt(d.y, c.y, u.y, p.y, H) -
-                   fdt(to_f32(gw[p.ym]), wc, to_f32(gw[p.yp]), p.y, H);
-  const float vb = fdt(l.z, c.z, r.z, p.x, W) + fdt(d.w, c.w, u.w, p.y, H) +
-                   fdt(to_f32(gw[p.xm]), wc, to_f32(gw[p.xp]), p.x, W);
-  store2(out, i, ub, vb);
-}
-
-// --- the curls over row tiles ----------------------------------------------
+// --- row tiles -------------------------------------------------------------
 
 // Rows a thread's tile holds, the forward curl's and its transpose's: the
 // fastest on the H100 of tiles of 1 to 32 rows, each preloaded or marched
@@ -181,6 +74,20 @@ constexpr int kCurlBwdRows = 2;
 // crossover grows with the element (measured between 0.79 and 1.57 M
 // points in f32, 0.39 and 0.79 M in bf16).
 constexpr long long kBwdVectorPointsPerByte = 1 << 18;
+// The jacobian (#2) and its transpose (#4), measured the same way
+// (tools/jacobian_tiles.py): tiles of 2 rows, and runs of the points that
+// keep a warp's stores in whole 32-byte sectors.  Runs of 16 bytes of each
+// channel (4 points in f32) lose: a lane then writes J 16 bytes at a time
+// 64 bytes apart, so each store instruction writes half of every sector it
+// touches.  The jacobian's run holds one 16-byte vector of J (a point in
+// f32, two in bf16), its transpose's two points (one 16-byte vector of the
+// output in f32), from the curl's transpose's threshold on; below, one
+// point.
+constexpr int kJacRows = 2;
+constexpr int kJacBwdRows = 2;
+template <typename T>
+constexpr int kJacVec = 4 / sizeof(T);
+constexpr int kJacBwdVec = 2;
 
 // An unsigned integer of B bytes: what one load or store moves.
 template <int B>
@@ -400,10 +307,189 @@ curl2d_bwd_kernel(const T* __restrict__ g, T* __restrict__ out,
   }
 }
 
-// Selects the device and sizes the grid over n points.
-cudaError_t prologue(int device, long long n, unsigned* blocks) {
-  *blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  return cudaSetDevice(device);
+// --- the jacobian and its transpose over row tiles --------------------------
+
+// One row of a run of the jacobian: from (u, v) of the run in rows y and
+// y + 1 (or y - 1 and y, the field's last row) and at xn, the neighbour
+// past the run, J = (du/dx, du/dy, dv/dx, dv/dy) and w = dv/dx - du/dy
+// stored at jac and vort (the run's first point).
+template <typename T, int VEC>
+__device__ __forceinline__ void jacobian_row(const Run<T, 2 * VEC>& lo,
+                                             const Run<T, 2 * VEC>& hi,
+                                             const Run<T, 2 * VEC>& c,
+                                             const Run<T, 2>& nb, int x0,
+                                             int W, T* jac, T* vort) {
+  float j[4 * VEC], w[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    float dx[2];
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) {
+      const float v = c[2 * k + ch];
+      dx[ch] = x0 + k + 1 < W
+                   ? (k + 1 < VEC ? c[2 * k + 2 + ch] : nb[ch]) - v
+                   : v - (k > 0 ? c[2 * k - 2 + ch] : nb[ch]);
+    }
+    const float dudy = hi[2 * k] - lo[2 * k];
+    const float dvdy = hi[2 * k + 1] - lo[2 * k + 1];
+    j[4 * k] = dx[0];
+    j[4 * k + 1] = dudy;
+    j[4 * k + 2] = dx[1];
+    j[4 * k + 3] = dvdy;
+    w[k] = dx[1] - dudy;                 // f32, rounded once
+  }
+  store_run<T, 4 * VEC>(jac, j);
+  store_run<T, VEC>(vort, w);
+}
+
+// vel [B, H, W, 2] -> J [B, H, W, 4], w [B, H, W, 1].
+template <typename T, int VEC, int R>
+__global__ void __launch_bounds__(kThreads)
+jacobian2d_kernel(const T* __restrict__ vel, T* __restrict__ jac,
+                  T* __restrict__ vort, long long batch, int H, int W) {
+  const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  if (x0 >= W) return;
+  // The neighbour the run's last x-difference needs, as in curl2d_kernel.
+  const int xn = x0 + VEC < W ? x0 + VEC : (VEC == 1 ? x0 - 1 : -1);
+  const long long plane = (long long)H * W;
+  const int ystep = gridDim.y * blockDim.y * R;
+  for (long long b = blockIdx.z; b < batch; b += gridDim.z) {
+    for (int y0 = (blockIdx.y * blockDim.y + threadIdx.y) * R; y0 < H;
+         y0 += ystep) {
+      const long long p = b * plane + (long long)y0 * W;   // point (b, y0, 0)
+      const T* f = vel + 2 * p;
+      // Rows y0 .. y0 + R (the last is the halo below the tile), those the
+      // field has: n of them.
+      const int n = min(R + 1, H - y0);
+      Run<T, 2 * VEC> row[R + 1];
+      Run<T, 2> nb[R + 1] = {};                          // (u, v) at xn
+#pragma unroll
+      for (int r = 0; r <= R; ++r) {
+        if (r < n) {
+          row[r].load(f + 2LL * (r * W + x0));
+          if (xn >= 0) nb[r].load(f + 2LL * (r * W + xn));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r >= n) break;
+        T* jr = jac + 4 * (p + (long long)r * W + x0);
+        T* wr = vort + p + (long long)r * W + x0;
+        if (r + 1 < n) {
+          jacobian_row<T, VEC>(row[r], row[r + 1], row[r], nb[r], x0, W, jr,
+                               wr);
+        } else if (r > 0) {
+          // The field's last row repeats the difference of the one before.
+          jacobian_row<T, VEC>(row[r - 1], row[r], row[r], nb[r], x0, W, jr,
+                               wr);
+        } else {
+          // A tile of the field's last row alone reads the row above.
+          Run<T, 2 * VEC> up;
+          up.load(f - 2LL * (W - x0));
+          jacobian_row<T, VEC>(up, row[0], row[0], nb[0], x0, W, jr, wr);
+        }
+      }
+    }
+  }
+}
+
+// One row y of a run of the transpose: from J's cotangent of the run in
+// rows y - 1, y and y + 1 (ym, c, yp) and at x0 - 1 and x0 + VEC (xm, xp),
+// and the vorticity's likewise (wym .. wxp, read only with kVort),
+//   u_bar = fdt_x(J0) + fdt_y(J1) - fdt_y(w_bar)
+//   v_bar = fdt_x(J2) + fdt_y(J3) + fdt_x(w_bar)
+// stored at out (the run's first point), in the plain version's order.
+// Without kVort the w_bar terms are left out: the same up to the sign of
+// an exact zero.
+template <typename T, int VEC, bool kVort>
+__device__ __forceinline__ void jacobian_bwd_row(
+    const Run<T, 4 * VEC>& ym, const Run<T, 4 * VEC>& c,
+    const Run<T, 4 * VEC>& yp, const Run<T, 4>& xm, const Run<T, 4>& xp,
+    const Run<T, VEC>& wym, const Run<T, VEC>& wc, const Run<T, VEC>& wyp,
+    const Run<T, 1>& wxm, const Run<T, 1>& wxp, int x0, int y, int H, int W,
+    T* out) {
+  float res[2 * VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    const int x = x0 + k;
+    float uv[2];
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) {        // (J0, J1) for u, (J2, J3) for v
+      const int a = 2 * ch, e = 4 * k + a;
+      const float m = k > 0 ? c[e - 4] : xm[a];
+      const float q = k + 1 < VEC ? c[e + 4] : xp[a];
+      uv[ch] = fdt_sel(m, c[e], q, x, W) +
+               fdt_sel(ym[e + 1], c[e + 1], yp[e + 1], y, H);
+    }
+    if constexpr (kVort) {
+      const float m = k > 0 ? wc[k - 1] : wxm[0];
+      const float q = k + 1 < VEC ? wc[k + 1] : wxp[0];
+      uv[0] = uv[0] - fdt_sel(wym[k], wc[k], wyp[k], y, H);
+      uv[1] = uv[1] + fdt_sel(m, wc[k], q, x, W);
+    }
+    res[2 * k] = uv[0];
+    res[2 * k + 1] = uv[1];
+  }
+  store_run<T, 2 * VEC>(out, res);
+}
+
+// gj [B, H, W, 4] and gw [B, H, W, 1] (kVort; else unread, may be null)
+// -> out [B, H, W, 2].
+template <typename T, int VEC, int R, bool kVort>
+__global__ void __launch_bounds__(kThreads)
+jacobian2d_bwd_kernel(const T* __restrict__ gj, const T* __restrict__ gw,
+                      T* __restrict__ out, long long batch, int H, int W) {
+  const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  if (x0 >= W) return;
+  // fdt reads the point before each and, at W - 2 only, the one after: a
+  // run of several points never ends there (W is a multiple of VEC).
+  const bool left = x0 > 0, right = VEC == 1 && x0 == W - 2;
+  const long long plane = (long long)H * W;
+  const int ystep = gridDim.y * blockDim.y * R;
+  for (long long b = blockIdx.z; b < batch; b += gridDim.z) {
+    for (int y0 = (blockIdx.y * blockDim.y + threadIdx.y) * R; y0 < H;
+         y0 += ystep) {
+      const long long p = b * plane + (long long)y0 * W + x0;  // (b, y0, x0)
+      const T* fj = gj + 4 * p;
+      const T* fw = kVort ? gw + p : nullptr;
+      const int n = min(R, H - y0);                     // the tile's rows
+      // jr[r + 1], wr[r + 1]: row y0 + r, r = -1 .. R: the row above the
+      // tile, the tile, and the row below it where fdt reads one (after
+      // row H - 2).  Rows not read stay 0.
+      Run<T, 4 * VEC> jr[R + 2] = {};
+      Run<T, VEC> wr[R + 2] = {};
+      // J and w at x0 - 1 and x0 + VEC, row y0 + r.
+      Run<T, 4> jxm[R] = {}, jxp[R] = {};
+      Run<T, 1> wxm[R] = {}, wxp[R] = {};
+#pragma unroll
+      for (int r = -1; r <= R; ++r) {
+        if (r < 0 ? y0 > 0 : r < R ? r < n : y0 + R == H - 1) {
+          jr[r + 1].load(fj + 4LL * r * W);
+          if constexpr (kVort) wr[r + 1].load(fw + (long long)r * W);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r >= n) break;
+        if (left) {
+          jxm[r].load(fj + 4LL * r * W - 4);
+          if constexpr (kVort) wxm[r].load(fw + (long long)r * W - 1);
+        }
+        if (right) {
+          jxp[r].load(fj + 4LL * r * W + 4 * VEC);
+          if constexpr (kVort) wxp[r].load(fw + (long long)r * W + VEC);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r >= n) break;
+        jacobian_bwd_row<T, VEC, kVort>(
+            jr[r], jr[r + 1], jr[r + 2], jxm[r], jxp[r], wr[r], wr[r + 1],
+            wr[r + 2], wxm[r], wxp[r], x0, y0 + r, H, W,
+            out + 2 * (p + (long long)r * W));
+      }
+    }
+  }
 }
 
 // Launch shape of the row-tile kernels for runs of vec points and tiles of
@@ -428,14 +514,13 @@ Tiles row_tiles(long long batch, int H, int W, int vec, int rows) {
   return t;
 }
 
-// Whether 16-byte runs of T can be taken: W a multiple of them and both
-// tensors 16-byte aligned.
-template <typename T>
-bool vector_runs(const void* in, const void* out, int W) {
-  const auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  return W % (16 / sizeof(T)) == 0 && aligned(in) && aligned(out);
+// Whether runs of V points can be taken: W a multiple of V and every
+// tensor 16-byte aligned (a null one, not read, is).  A run of one point
+// always can (the wrappers align storage to a point).
+template <int V, typename... P>
+bool runs_fit(int W, const P*... ptrs) {
+  return V == 1 || (W % V == 0 &&
+                    ((reinterpret_cast<uintptr_t>(ptrs) % 16 == 0) && ...));
 }
 
 // The curl over tiles of R rows, in runs of 16 bytes (vec) or one point.
@@ -474,7 +559,8 @@ template <typename T>
 void curl2d(const void* psi, void* out, long long batch, int H, int W,
             cudaStream_t s) {
   launch_curl2d<kCurlRows>(static_cast<const T*>(psi), static_cast<T*>(out),
-                           batch, H, W, vector_runs<T>(psi, out, W), s);
+                           batch, H, W, runs_fit<16 / sizeof(T)>(W, psi, out),
+                           s);
 }
 
 // The transpose over row tiles; 16-byte runs where they can be taken and
@@ -482,11 +568,71 @@ void curl2d(const void* psi, void* out, long long batch, int H, int W,
 template <typename T>
 void curl2d_bwd(const void* g, void* out, long long batch, int H, int W,
                 cudaStream_t s) {
-  const bool vec = vector_runs<T>(g, out, W) &&
+  const bool vec = runs_fit<16 / sizeof(T)>(W, g, out) &&
                    batch * H * W >=
                        kBwdVectorPointsPerByte * (long long)sizeof(T);
   launch_curl2d_bwd<kCurlBwdRows>(static_cast<const T*>(g),
                                   static_cast<T*>(out), batch, H, W, vec, s);
+}
+
+// The jacobian over tiles of R rows in runs of V points.
+template <int R, int V, typename T>
+void launch_jacobian2d(const T* vel, T* jac, T* vort, long long batch, int H,
+                       int W, cudaStream_t s) {
+  const Tiles t = row_tiles(batch, H, W, V, R);
+  jacobian2d_kernel<T, V, R><<<t.grid, t.block, 0, s>>>(vel, jac, vort,
+                                                         batch, H, W);
+}
+
+template <int R, int V, bool kVort, typename T>
+void launch_jacobian2d_bwd(const T* gj, const T* gw, T* out, long long batch,
+                           int H, int W, cudaStream_t s) {
+  const Tiles t = row_tiles(batch, H, W, V, R);
+  jacobian2d_bwd_kernel<T, V, R, kVort><<<t.grid, t.block, 0, s>>>(
+      gj, gw, out, batch, H, W);
+}
+
+// The jacobian over row tiles; runs of kJacVec points where they fit.
+template <typename T>
+void jacobian2d(const void* vel, void* jac, void* vort, long long batch,
+                int H, int W, cudaStream_t s) {
+  constexpr int V = kJacVec<T>;
+  const T* v = static_cast<const T*>(vel);
+  T* j = static_cast<T*>(jac);
+  T* w = static_cast<T*>(vort);
+  if (runs_fit<V>(W, vel, jac, vort)) {
+    launch_jacobian2d<kJacRows, V>(v, j, w, batch, H, W, s);
+  } else {
+    launch_jacobian2d<kJacRows, 1>(v, j, w, batch, H, W, s);
+  }
+}
+
+template <bool kVort, typename T>
+void jacobian2d_bwd_runs(const T* gj, const T* gw, T* out, long long batch,
+                         int H, int W, cudaStream_t s) {
+  constexpr int V = kJacBwdVec;
+  if (runs_fit<V>(W, gj, gw, out) &&
+      batch * H * W >= kBwdVectorPointsPerByte * (long long)sizeof(T)) {
+    launch_jacobian2d_bwd<kJacBwdRows, V, kVort>(gj, gw, out, batch, H, W, s);
+  } else {
+    launch_jacobian2d_bwd<kJacBwdRows, 1, kVort>(gj, gw, out, batch, H, W, s);
+  }
+}
+
+// The transpose over row tiles, reading the vorticity's cotangent only
+// where there is one (gw not null); runs of kJacBwdVec points where they
+// fit and the field holds enough points for them to pay.
+template <typename T>
+void jacobian2d_bwd(const void* gj, const void* gw, void* out,
+                    long long batch, int H, int W, cudaStream_t s) {
+  const T* j = static_cast<const T*>(gj);
+  const T* w = static_cast<const T*>(gw);
+  T* o = static_cast<T*>(out);
+  if (w) {
+    jacobian2d_bwd_runs<true>(j, w, o, batch, H, W, s);
+  } else {
+    jacobian2d_bwd_runs<false>(j, w, o, batch, H, W, s);
+  }
 }
 
 }  // namespace
@@ -516,20 +662,13 @@ extern "C" int df_curl2d(const void* psi, void* out, long long batch, int H,
 extern "C" int df_jacobian2d(const void* vel, void* jac, void* vort,
                              long long batch, int H, int W, int dtype,
                              int device, void* stream) {
-  const long long n = batch * H * W;
-  unsigned blocks;
-  cudaError_t err = prologue(device, n, &blocks);
-  if (err != cudaSuccess || n == 0) return (int)err;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess || batch * H * W == 0) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    jacobian2d_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(vel), static_cast<float*>(jac),
-        static_cast<float*>(vort), n, H, W);
+    jacobian2d<float>(vel, jac, vort, batch, H, W, s);
   } else if (dtype == 1) {
-    jacobian2d_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(vel),
-        static_cast<__nv_bfloat16*>(jac), static_cast<__nv_bfloat16*>(vort),
-        n, H, W);
+    jacobian2d<__nv_bfloat16>(vel, jac, vort, batch, H, W, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -551,23 +690,17 @@ extern "C" int df_curl2d_bwd(const void* g, void* out, long long batch, int H,
   return (int)cudaGetLastError();
 }
 
+// gw may be null: no vorticity cotangent, J's alone.
 extern "C" int df_jacobian2d_bwd(const void* gj, const void* gw, void* out,
                                  long long batch, int H, int W, int dtype,
                                  int device, void* stream) {
-  const long long n = batch * H * W;
-  unsigned blocks;
-  cudaError_t err = prologue(device, n, &blocks);
-  if (err != cudaSuccess || n == 0) return (int)err;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess || batch * H * W == 0) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    jacobian2d_bwd_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(gj), static_cast<const float*>(gw),
-        static_cast<float*>(out), n, H, W);
+    jacobian2d_bwd<float>(gj, gw, out, batch, H, W, s);
   } else if (dtype == 1) {
-    jacobian2d_bwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(gj),
-        static_cast<const __nv_bfloat16*>(gw),
-        static_cast<__nv_bfloat16*>(out), n, H, W);
+    jacobian2d_bwd<__nv_bfloat16>(gj, gw, out, batch, H, W, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -298,17 +298,6 @@ __device__ __forceinline__ Nbr nbr(int j, int n, int stride) {
   return {j > 0 ? -stride : 0, j == n - 2 ? stride : 0};
 }
 
-// fdt (fd_common.cuh), the same operations, with every case computed and
-// one selected: no branch where neighbouring threads lie on different
-// edges.
-__device__ __forceinline__ float fdt_sel(float dm, float d0, float dp, int j,
-                                         int n) {
-  const float mid = dm - d0;
-  float r = j == n - 2 ? mid - dp : mid;
-  r = j == n - 1 ? dm + d0 : r;
-  return j == 0 ? -d0 : r;
-}
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),

@@ -35,4 +35,15 @@ __device__ __forceinline__ float fdt(float dm, float d0, float dp, int j,
   return dm - d0;
 }
 
+// fdt, the same operations, with every case computed and one selected: no
+// branch where neighbouring threads lie on different edges.  dp is read at
+// j = n - 2 only, dm nowhere at j = 0.
+__device__ __forceinline__ float fdt_sel(float dm, float d0, float dp, int j,
+                                         int n) {
+  const float mid = dm - d0;
+  float r = j == n - 2 ? mid - dp : mid;
+  r = j == n - 1 ? dm + d0 : r;
+  return j == 0 ? -d0 : r;
+}
+
 }  // namespace

@@ -142,14 +142,24 @@ def curl2d_bwd(g: torch.Tensor) -> torch.Tensor:
     return _launch("curl2d_bwd", "df_curl2d_bwd", [g], [1])[0]
 
 
-def jacobian2d_bwd(gj: torch.Tensor, gw: torch.Tensor) -> torch.Tensor:
+def jacobian2d_bwd(gj: torch.Tensor,
+                   gw: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel-backed :func:`deepfluids_tpu_torch.ops.fd.jacobian2d_bwd`:
     cotangents ``J [B, H, W, 4]`` and ``vort [B, H, W, 1]`` ->
-    ``[B, H, W, 2]``, H, W >= 3."""
+    ``[B, H, W, 2]``, H, W >= 3.
+
+    ``gw=None`` means no vorticity cotangent (the vorticity was unused):
+    the kernel then reads J's alone, where JAX passes zeros; the result is
+    the same up to the sign of an exact zero.  The plain version is given
+    zeros.
+    """
     _check("jacobian2d_bwd", gj, 4, 3)
-    _check("jacobian2d_bwd", gw, 1, 3)
-    _check_pair("jacobian2d_bwd", gj, gw)
+    if gw is not None:
+        _check("jacobian2d_bwd", gw, 1, 3)
+        _check_pair("jacobian2d_bwd", gj, gw)
     if gj.device.type == "cpu":
+        if gw is None:
+            gw = gj.new_zeros(gj.shape[:-1] + (1,))
         return _in_f32(fd.jacobian2d_bwd, gj, gw)
     return _launch("jacobian2d_bwd", "df_jacobian2d_bwd", [gj, gw], [2])[0]
 
@@ -256,15 +266,21 @@ class _Curl2d(torch.autograd.Function):
 
 
 class _Jacobian2d(torch.autograd.Function):
-    # An unused output's cotangent arrives as zeros (materialized grads),
-    # as JAX passes them; the backward kernel takes any vort cotangent.
+    # An unused output's cotangent arrives as None (grads not materialized):
+    # an unused vorticity is not read at all, an unused J becomes zeros.
     @staticmethod
     def forward(ctx, x):
+        ctx.set_materialize_grads(False)
         return jacobian2d_fused(x)
 
     @staticmethod
     def backward(ctx, gj, gw):
-        return jacobian2d_bwd(gj.contiguous(), gw.contiguous())
+        if gj is None and gw is None:
+            return None
+        if gj is None:
+            gj = gw.new_zeros(gw.shape[:-1] + (4,))
+        return jacobian2d_bwd(gj.contiguous(),
+                              None if gw is None else gw.contiguous())
 
 
 class _Curl3d(torch.autograd.Function):

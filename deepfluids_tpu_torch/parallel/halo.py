@@ -135,8 +135,6 @@ def _stencil(x: torch.Tensor, shard: Shard | None, whole: Callable,
 def _jac2d_bwd(gj, gw):
     if gj is None:
         gj = gw.new_zeros(gw.shape[:-1] + (4,))
-    if gw is None:
-        gw = gj.new_zeros(gj.shape[:-1] + (1,))
     return cuda_fd.jacobian2d_bwd(gj, gw)
 
 

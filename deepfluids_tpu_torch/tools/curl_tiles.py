@@ -52,24 +52,26 @@ RING_BYTES = 256 << 20          # more than the 50 MB L2 holds
 SENTINEL_KERNEL = "spin_kernel"   # torch.cuda._sleep's, opens each window
 
 
-def build() -> tuple[ctypes.CDLL, dict]:
-    """The variants' library (built once per source hash into the port's
-    ``_build/``) and the registers ptxas gave each kernel instance, by
-    demangled name."""
+def build_variants(source: str, stem: str,
+                   match: str) -> tuple[ctypes.CDLL, dict]:
+    """The variants' library built from ``source`` (which includes
+    ``csrc/fd2d.cu``; once per source hash, into the port's ``_build/``) and
+    the registers ptxas gave each kernel instance whose name holds
+    ``match``, by demangled name."""
     h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
-    for path in (SOURCE, os.path.join(_build.CSRC_DIR, "fd2d.cu"),
+    for path in (source, os.path.join(_build.CSRC_DIR, "fd2d.cu"),
                  os.path.join(_build.CSRC_DIR, "fd_common.cuh")):
         with open(path, "rb") as f:
             h.update(f.read())
     out_dir = os.path.join(_build.BUILD_ROOT,
-                           "curl_tiles-" + h.hexdigest()[:16])
-    lib, log = (os.path.join(out_dir, n) for n in ("libcurl_tiles.so",
+                           f"{stem}-" + h.hexdigest()[:16])
+    lib, log = (os.path.join(out_dir, n) for n in (f"lib{stem}.so",
                                                    "build.log"))
     if not os.path.exists(lib):
         os.makedirs(out_dir, exist_ok=True)
         proc = subprocess.run(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
-             "-shared", "-o", lib + ".tmp", SOURCE],
+             "-shared", "-o", lib + ".tmp", source],
             capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
@@ -84,12 +86,17 @@ def build() -> tuple[ctypes.CDLL, dict]:
         if m:
             name = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
-        if m and name and "curl2d" in name:
+        if m and name and match in name:
             regs[name] = int(m.group(1))
     demangled = subprocess.run(["c++filt"], input="\n".join(regs),
                                capture_output=True, text=True).stdout
-    regs = dict(zip(demangled.splitlines(), regs.values()))
-    so = ctypes.CDLL(lib)
+    return ctypes.CDLL(lib), dict(zip(demangled.splitlines(), regs.values()))
+
+
+def build() -> tuple[ctypes.CDLL, dict]:
+    """``curl_tiles.cu``'s library and its kernels' registers
+    (:func:`build_variants`)."""
+    so, regs = build_variants(SOURCE, "curl_tiles", "curl2d")
     so.tile_curl2d.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     so.tile_curl2d.restype = ctypes.c_int

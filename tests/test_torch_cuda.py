@@ -86,14 +86,14 @@ def test_generator_golden_through_kernel(cuda_device):
 
 # --- jacobian2d_fused, curl2d_bwd, jacobian2d_bwd --------------------------
 
-# Besides the serving and training shapes: widths of no multiple of 4 or 8,
-# odd heights (a ragged last tile of curl2d_bwd's two rows), a row wider
-# than a block's threads, and fields large enough for curl2d_bwd's 16-byte
-# runs (1 M points in f32, 0.5 M in bf16; 48 x 129 x 96 takes them in bf16
-# only).
+# Besides the serving and training shapes: widths of no multiple of 4 or 8
+# (runs of one point: 5, 37, 13, 97), odd heights (a ragged last row
+# tile), a row wider than a block's threads, and fields large enough for
+# curl2d_bwd's 16-byte runs (1 M points in f32, 0.5 M in bf16; 48 x 129 x
+# 96 takes them in bf16 only).
 SHAPES = [(1, 128, 96), (32, 128, 96), (3, 8, 8), (2, 16, 12), (2, 3, 5),
           (2, 9, 37), (3, 7, 13), (3, 5, 96), (1, 5, 1100), (96, 128, 96),
-          (48, 129, 96)]
+          (48, 129, 96), (2, 6, 97)]
 BF16_ULP = 2.0 ** -7      # one bf16 ulp, relative to the value, at most
 
 
@@ -127,6 +127,8 @@ def test_kernel_matches_plain(cuda_device, op, plain, tol, shape, dtype):
         assert g.dtype == dtype and g.shape == wt.shape
         if dtype == torch.float32:
             torch.testing.assert_close(g, wt, atol=tol, rtol=0)
+            # The plain versions' order of operations: bit-equal.
+            assert torch.equal(g, wt)
         else:
             err = (g.float() - wt.to(dtype).float()).abs()
             assert bool((err <= BF16_ULP * wt.abs()).all())
@@ -160,6 +162,89 @@ def test_curl2d_kernels_unaligned_storage(cuda_device, op, plain, chans,
     if chans == 2:
         with pytest.raises(ValueError):
             getattr(cuda_fd, op)(buf[1:n + 1].view(shape + (chans,)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 9, 37), (2, 6, 97), (8, 128, 96),
+                                   (96, 128, 96)])
+@pytest.mark.parametrize("op", ["jacobian2d_fused", "jacobian2d_bwd"])
+def test_jacobian2d_kernels_unaligned_storage(cuda_device, op, shape,
+                                              dtype):
+    # Every input one point past an aligned address (a view into a larger
+    # buffer): (u, v) or the vorticity's cotangent off 16 bytes, so the
+    # kernels run in runs of one point; f32 stays bit-equal.
+    rng = np.random.default_rng(15)
+    xs = []
+    for c in {"jacobian2d_fused": [2], "jacobian2d_bwd": [4, 1]}[op]:
+        n = int(np.prod(shape)) * c
+        buf = torch.from_numpy(rng.standard_normal(n + c).astype(
+            np.float32)).to(cuda_device, dtype)
+        xs.append(buf[c:].view(shape + (c,)))
+    before = cuda_fd.launch_counts[op]
+    got = getattr(cuda_fd, op)(*xs)
+    torch.cuda.synchronize()
+    assert cuda_fd.launch_counts[op] == before + 1
+    want = cuda_fd._in_f32(getattr(fd, op.replace("_fused", "")),
+                           *(x.float() for x in xs))
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, wt in zip(got, want):
+        if dtype == torch.float32:
+            assert torch.equal(g, wt)
+        else:
+            _close_to_plain(g, wt, dtype, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("skip", [0, 1])
+@pytest.mark.parametrize("shape", [s for s in SHAPES if min(s[1:]) >= 3])
+def test_jacobian2d_bwd_kernel_without_vort(cuda_device, shape, skip,
+                                            dtype):
+    # No vorticity cotangent (the training loss's call): J's alone, equal
+    # to the plain version and to the kernel given zeros (atol 0; only the
+    # sign of an exact zero may differ).  skip 1 starts the storage one
+    # point past an aligned address.
+    n = int(np.prod(shape)) * 4
+    gj = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        n + 4 * skip).astype(np.float32)).to(cuda_device, dtype)[
+            4 * skip:].view(shape + (4,))
+    zeros = torch.zeros(shape + (1,), dtype=dtype, device=cuda_device)
+    before = cuda_fd.launch_counts["jacobian2d_bwd"]
+    got = cuda_fd.jacobian2d_bwd(gj, None)
+    torch.cuda.synchronize()
+    assert cuda_fd.launch_counts["jacobian2d_bwd"] == before + 1
+    torch.testing.assert_close(got, cuda_fd.jacobian2d_bwd(gj, zeros),
+                               atol=0, rtol=0)
+    want = fd.jacobian2d_bwd(gj.float(), zeros.float())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    else:
+        _close_to_plain(got, want, dtype, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("used", [0, 1], ids=["j_only", "vort_only"])
+@pytest.mark.parametrize("shape", [(2, 16, 12), (8, 128, 96)])
+def test_autograd_jacobian2d_one_output_unused(cuda_device, shape, used):
+    # The unused output's cotangent arrives as None: J's alone (the kernel
+    # reads no vorticity cotangent), or the vorticity's with J's made zeros.
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal(shape + (2,)).astype(
+        np.float32)).to(cuda_device)
+    cot = torch.from_numpy(rng.standard_normal(
+        shape + ((4, 1)[used],)).astype(np.float32)).to(cuda_device)
+    grads = []
+    for f in (cuda_fd.jacobian2d_p, fd.jacobian2d):
+        a = x.clone().requires_grad_()
+        f(a)[used].backward(cot)
+        grads.append(a.grad)
+    # Autograd of the plain ops sums the edge terms in another order.
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=0)
+    cots = [cot, torch.zeros(shape + ((1, 4)[used],), device=cuda_device)]
+    want = fd.jacobian2d_bwd(*(cots if used == 0 else cots[::-1]))
+    torch.testing.assert_close(grads[0], want, atol=0, rtol=0)
 
 
 @pytest.mark.cuda
@@ -267,6 +352,8 @@ def test_kernel_3d_matches_plain(cuda_device, op, shape, dtype):
         assert g.dtype == dtype and g.shape == wt.shape
         if dtype == torch.float32:
             torch.testing.assert_close(g, wt, atol=tol, rtol=0)
+            # The plain versions' order of operations: bit-equal.
+            assert torch.equal(g, wt)
         else:
             err = (g.float() - wt.to(dtype).float()).abs()
             assert bool((err <= BF16_ULP * wt.abs()).all())

@@ -175,6 +175,29 @@ def test_jacobian2d_p_unused_vort_gets_zero_cotangent():
     torch.testing.assert_close(x.grad, want, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_jacobian2d_bwd_without_vort_is_the_zeros_path(dtype):
+    # gw=None: no vorticity cotangent, the same as JAX's zeros.
+    gj = torch.from_numpy(_rand((2, 16, 12, 4), 35)).to(dtype)
+    got = cuda_fd.jacobian2d_bwd(gj, None)
+    want = cuda_fd.jacobian2d_bwd(gj, torch.zeros(2, 16, 12, 1,
+                                                  dtype=dtype))
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(
+        got, tops.fd.jacobian2d_bwd(gj.float(), torch.zeros(
+            2, 16, 12, 1)).to(dtype), atol=0, rtol=0)
+
+
+def test_jacobian2d_p_unused_j_gets_zero_cotangent():
+    # The vorticity alone used: J's cotangent is zeros, as in JAX.
+    x = torch.from_numpy(_rand((2, 16, 12, 2), 36)).requires_grad_()
+    gw = torch.from_numpy(_rand((2, 16, 12, 1), 37))
+    _, w = cuda_fd.jacobian2d_p(x)
+    w.backward(gw)
+    want = tops.fd.jacobian2d_bwd(torch.zeros(2, 16, 12, 4), gw)
+    torch.testing.assert_close(x.grad, want, atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("shape", [(2, 16, 12), (1, 128, 96), (3, 8, 8)])
 def test_jacobian2d_fused_cpu_matches_pallas(shape):
     x = _rand(shape + (2,), 40)

@@ -47,6 +47,7 @@ from deepfluids_tpu_torch.tools import (  # noqa: E402
     _record,
     curl_tiles,
     eval_run,
+    jacobian_tiles,
     latent_predictability,
     make_goldens,
     regen_all,
@@ -95,7 +96,7 @@ def test_record_stamps_and_appends(tmp_path, capsys):
     (eval_run, ["run"]), (rollout_eval, ["run"]),
     (latent_predictability, ["ds", "16"]), (solver_consistency, ["2d"]),
     (regen_all, ["--verify_only"]), (make_goldens, ["--out", "x"]),
-    (weights_io, ["run"]), (curl_tiles, [])])
+    (weights_io, ["run"]), (curl_tiles, []), (jacobian_tiles, [])])
 def test_tools_raise_without_a_card(tool, argv):
     # The default device is the card; this machine has none.
     assert not torch.cuda.is_available()
