@@ -3,6 +3,8 @@
     python3 chip_smoke.py          # from the repo root, one card, no args
     python3 chip_smoke.py readings # what sizes phase 6's K_F64, and the
                                    # cost of the models' activation
+    python3 chip_smoke.py side <tree>  # one side of a parent/change
+                                   # comparison of the training path
 
 Drives the port's serving and training paths, 2D (configs #1/#2,
 smoke_pos21_size5), 3D (config #5, smoke3_vel5_buo3), config #3's liquid
@@ -42,7 +44,10 @@ exits non-zero:
      ``--device_data_cache`` (the liquid also with ``--augment_flip_x``),
      and serves a small grid from the run's weights.npz; the loss must
      fall, sample PNGs must be written and every kernel's launch count
-     must be exact per step (zero for the liquid).  The 2D path also
+     must be exact per step (zero for the liquid).  Every one of these
+     runs (and phase 7's AE runs) must log the CUDA graph path
+     (``train/graph.py``: one replay a chunk of --steps_per_call steps,
+     the launches counted through capture x replays).  The 2D path also
      trains with ``--input_pipeline grain --num_worker 4`` (a log
      directory of its own) and resumes by the decode-free skip: launches
      exact, every batch pinned before its copy, the metrics steps
@@ -76,7 +81,19 @@ exits non-zero:
      integrator step and a 400-frame rollout, the liquid step (batch 8 and
      64) and serving (batch 512), the knob step against the plain 2D step
      (batch 8 and 64) with the kernels each launches, the x-mirror's cost,
-     and profile lines by kernel;
+     and profile lines by kernel; and the eager loop against the CUDA
+     graph at --steps_per_call 1, 8 and 32 from the device cache (2D,
+     liquid, knobs at batch 8 and 64, 3D and the AE at 8): wall, host and
+     device ms a step, idle share, steps/s, the capture's seconds, the
+     graph pool's and the peak's MB;
+ 14. right after phase 7, the CUDA graph against its body run eagerly
+     from the same seed and batches (2D batch 8 with the x-mirror, 3D
+     batch 2, the AE on ``--ae_pred_w`` pair batches; 40 steps at
+     --steps_per_call 1 and 8): parameters and Adam's state bit for bit
+     (or, said so, within 1e-6 of each one's largest entry), launches
+     exact; a 2D graph run checkpointed at 20, trained on, restored there
+     (the held graph dropped) and trained to 40 equals 40 uninterrupted
+     steps bit for bit;
   13. right after phase 5, the repo root's entry points:
      ``graft_entry.entry()`` on the card, its forward at the entry's own
      ``p`` and at a batch of 512 (finite, one curl launch a call) against the plain curl on the
@@ -1048,10 +1065,12 @@ def phase_train(device, root: str, path: MainPath) -> dict:
             (flags + ["--max_step", str(n1), "--load_path", run,
                       *path.resume_flags],
              n1 - n0, n1 // save - n0 // save)):
-        _, secs, launches = _drive(
-            device, argv, per_step(steps, dumps),
-            f"{path.name} training ({steps} steps, {dumps} sample dumps)")
-        runs.append({"secs": secs, "launches": launches, "steps": steps})
+        what = f"{path.name} training ({steps} steps, {dumps} sample dumps)"
+        with step_log() as seen:
+            _, secs, launches = _drive(device, argv, per_step(steps, dumps),
+                                       what)
+        runs.append({"secs": secs, "launches": launches, "steps": steps,
+                     "graph": graph_taken(seen, what)})
 
     rows = _metrics(run)
     steps = [r["step"] for r in rows]
@@ -1105,7 +1124,8 @@ def phase_train(device, root: str, path: MainPath) -> dict:
           f"{first:.4f} (step {path.log_step}) -> {last:.4f} (step {n0}) -> "
           f"{rows[-1]['loss']:.4f} (step {n1}); launches of the first run "
           f"{nonzero} = {path.step_launches} per step + "
-          f"{path.forward_launches} per sample dump, exact in both runs; "
+          f"{path.forward_launches} per sample dump, exact in both runs "
+          f"(train step path: CUDA graph, {runs[0]['graph']}); "
           f"checkpoints {ckpts}; sample PNGs {samples}; served 24 fields from "
           f"weights.npz (eval l2_mean {result['eval']['l2_mean']:.4f}); "
           f"steps/s end to end (metrics.jsonl) streaming {rate['stream']}, "
@@ -1170,10 +1190,12 @@ def phase_train_grain(device, root: str, path: MainPath, data_dir: str,
                 (gflags + ["--max_step", str(n0)], n0, n0 // save),
                 (gflags + ["--max_step", str(n1), "--load_path", run],
                  n1 - n0, n1 // save - n0 // save)):
-            _, secs, launches = _drive(
-                device, argv, per_step(steps, dumps),
-                f"{path.name} grain training ({steps} steps)")
-            runs.append({"secs": secs, "launches": launches, "steps": steps})
+            what = f"{path.name} grain training ({steps} steps)"
+            with step_log() as seen:
+                _, secs, launches = _drive(device, argv,
+                                           per_step(steps, dumps), what)
+            runs.append({"secs": secs, "launches": launches, "steps": steps,
+                         "graph": graph_taken(seen, what)})
     if pinned["batches"] != n1:
         raise AssertionError(f"the trainer took {pinned['batches']} grain "
                              f"batches in {n1} steps")
@@ -1207,7 +1229,8 @@ def phase_train_grain(device, root: str, path: MainPath, data_dir: str,
           f"the decode-free skip to {n1} in {runs[1]['secs']:.2f} s; loss "
           f"{first:.4f} -> {last:.4f} (step {n0}) -> {rows[-1]['loss']:.4f} "
           f"(step {n1}); launches {path.step_launches} per step + "
-          f"{path.forward_launches} per sample dump, exact in both runs; "
+          f"{path.forward_launches} per sample dump, exact in both runs "
+          f"(train step path: CUDA graph, {runs[0]['graph']}); "
           f"all {n1} batches pinned before their copy; the resumed stream's "
           f"first {k} batches bit-equal to the fresh stream's batches "
           f"{n0}..{n0 + k - 1}; steps/s end to end (metrics.jsonl) "
@@ -1590,8 +1613,10 @@ def phase_train_mov(device, root: str, path: LatentPath) -> dict:
         want = expected_launches({
             k: steps * n + dumps * path.forward_launches.get(k, 0)
             for k, n in path.step_launches.items()})
-        _, secs, launches = _drive(device, argv, want, "AE training")
-        ae_runs.append({"secs": secs, "launches": launches, "steps": steps})
+        with step_log() as seen:
+            _, secs, launches = _drive(device, argv, want, "AE training")
+        ae_runs.append({"secs": secs, "launches": launches, "steps": steps,
+                        "graph": graph_taken(seen, "AE training")})
     rows = _metrics(ae_run)
     if [r["step"] for r in rows] != list(range(path.log_step, n1 + 1,
                                                path.log_step)):
@@ -1688,7 +1713,8 @@ def phase_train_mov(device, root: str, path: LatentPath) -> dict:
           f"{ae_runs[1]['secs']:.2f} s, loss {ae_loss[0]:.4f} -> "
           f"{ae_loss[1]:.4f} -> {ae_loss[2]:.4f}, launches exactly "
           f"{path.step_launches} a step + {path.forward_launches} a sample "
-          f"dump, sample PNGs {samples}; encode pass {len(codes)} code "
+          f"dump (train step path: CUDA graph, {ae_runs[0]['graph']}), "
+          f"sample PNGs {samples}; encode pass {len(codes)} code "
           f"files of [{path.frames}, {path.z_num}] in {enc_s:.2f} s, no FD "
           f"kernel; integrator (nn_hidden 512, nn_depth 2, w_num "
           f"{path.w_num}, batch 8) {path.nn_steps} steps in "
@@ -2510,6 +2536,285 @@ def phase_liquid_knob_timing(device, train: dict, serving: dict,
           f"batch 8: {on:.3f} ms with vs {off:.3f} ms without "
           f"({on - off:+.3f} ms; n {runs[0]:.3f} f {runs[1]:.3f} f "
           f"{runs[2]:.3f} n {runs[3]:.3f})", flush=True)
+    return out
+
+
+# The train step as a CUDA graph (train/graph.py): phase 5's
+# --steps_per_call values, phase 14's steps of each graph-vs-body run and
+# the step of its resume check's checkpoint, and the bar when a run is not
+# bit-equal (of each parameter's largest entry; cuDNN may pick another
+# algorithm under capture).
+GRAPH_KS = (1, 8, 32)
+GRAPH_PARITY_STEPS = 40
+GRAPH_RESUME_AT = 20
+TOL_GRAPH = 1e-6
+
+
+@contextlib.contextmanager
+def step_log():
+    """The port's log lines of the train step's path and of each capture,
+    collected while inside."""
+    import logging
+
+    seen: list[str] = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith(("train step path", "captured")):
+                seen.append(msg)
+
+    keep = Keep()
+    logger = logging.getLogger("deepfluids_tpu_torch")
+    logger.addHandler(keep)
+    try:
+        yield seen
+    finally:
+        logger.removeHandler(keep)
+
+
+def graph_taken(seen: list[str], what: str) -> str:
+    """The capture line of a run that took the graph path (its log lines
+    ``seen``); raises if it did not."""
+    caps = [m for m in seen if m.startswith("captured")]
+    if not any(m.startswith("train step path: graph") for m in seen) or (
+            not caps):
+        raise AssertionError(f"{what} did not take the CUDA graph path: "
+                             f"{seen}")
+    return caps[-1]
+
+
+def _graph_config(run: str, tag: str, root: str, **kw):
+    """The config of phase 6/7's ``run`` as a fresh one-card training run
+    from the device cache under ``root``, changed by ``kw``."""
+    from deepfluids_tpu_torch.config import load_config
+
+    return dataclasses.replace(
+        load_config(run), is_train=True, load_path="", tag=tag,
+        log_dir=os.path.join(root, "graph_logs"), device_data_cache=True,
+        log_step=10 ** 6, save_step=10 ** 6, test_step=10 ** 6, **kw)
+
+
+def _state_distance(got, want) -> tuple[bool, float, str]:
+    """(bit-equal, the worst ``max |got - want| / max |want|`` over the
+    parameters and Adam's moments, its name) of two trainers."""
+    pairs = [(f"param {k}", got.model.state_dict()[k], v)
+             for k, v in want.model.state_dict().items()]
+    gs, ws = got.opt.state_dict()["state"], want.opt.state_dict()["state"]
+    pairs += [(f"adam {i} {k}", gs[i][k], v)
+              for i, st in ws.items() for k, v in st.items()]
+    same, worst, name = True, 0.0, ""
+    for k, a, b in pairs:
+        if not bool((a == b).all()):
+            same = False
+            a, b = a.double(), b.double()
+            d = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            if d > worst:
+                worst, name = d, k
+    return same, worst, name
+
+
+def _held(got, want, what: str) -> str:
+    """Bit-equal, or within TOL_GRAPH of each entry's scale (printed as
+    such); raises otherwise."""
+    same, worst, name = _state_distance(got, want)
+    if same:
+        return "bit-equal"
+    if worst > TOL_GRAPH:
+        raise AssertionError(f"{what}: {name} {worst:.3e} from the eager "
+                             f"body's (bar {TOL_GRAPH})")
+    return f"not bit-equal, worst {name} {worst:.3e} (bar {TOL_GRAPH})"
+
+
+def phase_graph(device, root: str, train: dict, mov: dict) -> None:
+    """Phase 14: the CUDA graph's chunks against the same body run eagerly,
+    at the flagship width from the same seed and batches: 2D "de" batch 8
+    with the x-mirror, 3D "de" batch 2 and the AE on pair batches
+    (``--ae_pred_w``), each 40 steps at --steps_per_call 1 and 8, the
+    parameters and Adam's state bit for bit (or held at TOL_GRAPH, said
+    so), the FD launches exact; then a 2D graph run checkpointed at step 20,
+    trained on and restored there (the captured graph dropped), trained
+    to 40, against the uninterrupted graph run."""
+    import torch
+
+    from deepfluids_tpu_torch.ops import cuda_fd
+    from deepfluids_tpu_torch.train import graph
+    from deepfluids_tpu_torch.train.trainer import Trainer
+
+    cases = (
+        ("2D", PATH_2D.step_launches,
+         _graph_config(train["2d"]["run"], "g2d", root, batch_size=8,
+                       augment_flip_x=True)),
+        ("3D", PATH_3D.step_launches,
+         _graph_config(train["3d"]["run"], "g3d", root, batch_size=2)),
+        ("MOV AE pairs", PATH_MOV.step_launches,
+         _graph_config(mov["run"], "gae", root, batch_size=8,
+                       ae_pred_w=0.5)))
+    n = GRAPH_PARITY_STEPS
+    done, keep = [], None
+    for label, step_launches, cfg in cases:
+        cache = None
+        for k in (1, 8):
+            pair = []
+            for path in (graph.GRAPH, graph.CHUNK):
+                t = Trainer(dataclasses.replace(
+                    cfg, steps_per_call=k, tag=f"{cfg.tag}_{path}{k}"),
+                    device=device)
+                if t.step_path != graph.GRAPH:
+                    raise AssertionError(f"{label}: path {t.step_path}")
+                t.step_path = path
+                if cache is None:
+                    cache = t._load_device_cache()
+                t._device_cache = cache
+                cuda_fd.reset_launch_counts()
+                run = t._chunk_runner(n, 0, k)
+                for _ in range(n // k):
+                    run(k)
+                torch.cuda.synchronize(device)
+                want = expected_launches({name: n * c for name, c in
+                                          step_launches.items()})
+                if dict(cuda_fd.launch_counts) != want:
+                    raise AssertionError(f"{label} {path} K={k} launched "
+                                         f"{cuda_fd.launch_counts}, want "
+                                         f"{want}")
+                pair.append(t)
+            g, e = pair
+            done.append(f"{label} K={k} {_held(g, e, f'{label} K={k}')} "
+                        f"(capture {g._chunks.capture_s:.2f} s, pool "
+                        f"{g._chunks.pool_bytes / 2 ** 20:.0f} MB)")
+            if label == "2D" and k == 1:
+                keep = g
+    # The resume check on the 2D cache path, K = 1.
+    cfg = dataclasses.replace(cases[0][2], steps_per_call=1,
+                              tag="g2d_resume", save_step=GRAPH_RESUME_AT)
+    t = Trainer(cfg, device=device)
+    t._device_cache = keep._device_cache
+    t.train(num_steps=GRAPH_RESUME_AT)
+    t.train(num_steps=8)
+    held = t._chunks.graph is not None
+    if not held or t.restore_checkpoint(GRAPH_RESUME_AT) != GRAPH_RESUME_AT:
+        raise AssertionError("the resume check: no graph held or no "
+                             "checkpoint")
+    if t._chunks is not None:
+        raise AssertionError("a restore kept the captured graph")
+    t.train(num_steps=n - GRAPH_RESUME_AT)
+    same, worst, name = _state_distance(t, keep)
+    if not same:
+        raise AssertionError(f"resumed at {GRAPH_RESUME_AT} under the graph "
+                             f"!= {n} uninterrupted steps: {name} {worst:.3e}")
+    print(f"phase 14 CUDA graph: ok  the graph against its body run eagerly "
+          f"({n} steps from one seed, launches exact): {'; '.join(done)}; "
+          f"{GRAPH_RESUME_AT} steps, a checkpoint, 8 more, restored at "
+          f"{GRAPH_RESUME_AT} (the held graph dropped) and {n - GRAPH_RESUME_AT} "
+          f"more = {n} uninterrupted, bit for bit", flush=True)
+
+
+def kernel_ms(fn, calls: int) -> float:
+    """Device time of ``calls`` calls of ``fn`` from the profiler's kernel
+    rows, per call; nan when the profiler gave none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    return total / 1e3 / calls if total else float("nan")
+
+
+def _steady(t, path: str, k: int, steps: int, profile: bool = False
+            ) -> dict:
+    """The steady state of trainer ``t``'s ``path`` at --steps_per_call
+    ``k`` from the device cache: after a warm-up chunk and the capture,
+    ``steps`` steps (whole chunks) timed end to end (host blocks, copies
+    and replays or eager steps included); the host's time issuing them
+    (its waits for a staging buffer included), peak memory and, with
+    ``profile``, the kernels' ms a step over one more chunk (profiler)."""
+    import torch
+
+    t.step_path = path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = t._chunk_runner(10 ** 9, t.step, k)
+    run(k)
+    run(k)
+    chunks = max(1, steps // k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        aux = run(k)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / (chunks * k)
+    loss = t._reported(aux)["loss"]
+    if not np.isfinite(loss):
+        raise AssertionError(f"{path} K={k}: loss {loss}")
+    g = t._chunks if path == "graph" else None
+    return {"wall_ms": wall, "host_ms": host * 1e3 / (chunks * k),
+            "steps_per_s": 1e3 / wall,
+            "capture_s": g.capture_s if g else None,
+            "pool_mb": g.pool_bytes / 2 ** 20 if g else None,
+            "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "kernel_ms": kernel_ms(lambda: run(k), 1) / k if profile
+            else None}
+
+
+def phase_graph_timing(device, root: str, train: dict, mov: dict,
+                       card: str) -> dict:
+    """Phase 5 (printed only): the eager loop against the CUDA graph at
+    --steps_per_call 1, 8 and 32, from the device cache, flagship bf16:
+    2D, liquid and knobs at batch 8 and 64, 3D and the MOV AE at 8; for
+    each the wall and host ms a step, steps/s, the capture's seconds, the
+    graph pool's and the peak's MB; the device ms of a step (the
+    profiler's kernel rows over one replay at K = 8: every path runs the
+    same kernels) and each path's idle share against it."""
+    from deepfluids_tpu_torch.train import graph
+    from deepfluids_tpu_torch.train.trainer import Trainer
+
+    cases = (("2D", train["2d"]["run"], (8, 64)),
+             ("LIQUID", train["liquid"]["run"], (8, 64)),
+             ("KNOBS", train["knobs"]["run"], (8, 64)),
+             ("3D", train["3d"]["run"], (8,)),
+             ("MOV AE", mov["run"], (8,)))
+    out = {}
+    for label, run, batches in cases:
+        cache = None
+        for b in batches:
+            cfg = _graph_config(run, f"time_{label}_{b}", root, batch_size=b)
+            t = Trainer(cfg, run_dir=os.path.join(root, "graph_logs"),
+                        device=device, save_cfg=False)
+            if cache is None:
+                cache = t._load_device_cache()
+            t._device_cache = cache
+            steps = 16 if b > 8 or label == "3D" else 32
+            kd = max(k for k in GRAPH_KS if k <= 8)    # profiled: one replay
+            res = {"eager": _steady(t, graph.EAGER, 1, steps)}
+            for k in GRAPH_KS:
+                res[k] = _steady(t, graph.GRAPH, k, max(steps, k),
+                                 profile=k == kd)
+            dev = res[kd]["kernel_ms"]
+            for r in res.values():
+                r.update(device_ms=dev, idle=1 - dev / r["wall_ms"])
+            out[(label, b)] = res
+
+            def fmt(r: dict) -> str:
+                return (f"{r['wall_ms']:.3f} ms (host {r['host_ms']:.3f}, "
+                        f"idle {r['idle']:.3f}) = {r['steps_per_s']:.1f} "
+                        f"steps/s, peak {r['peak_mb']:.0f} MB")
+            graphs = "; ".join(
+                f"K={k} {fmt(res[k])}, capture {res[k]['capture_s']:.2f} s, "
+                f"pool {res[k]['pool_mb']:.0f} MB" for k in GRAPH_KS)
+            print(f"phase 5 graph [{card}]: {label} train step flagship "
+                  f"{cfg.compute_dtype} batch {b}, device cache"
+                  f"{', x-mirror' if cfg.augment_flip_x else ''}: kernels "
+                  f"{dev:.3f} ms a step; eager {fmt(res['eager'])}; graph "
+                  f"{graphs}", flush=True)
+            del t
     return out
 
 
@@ -4440,6 +4745,7 @@ def run(device, card: str) -> list[dict]:
         mov = timed("phase 7 MOV", phase_train_mov, device, root, PATH_MOV)
         timed("phase 6 parity MOV", phase_train_parity, device, mov,
               PATH_MOV)
+        timed("phase 14", phase_graph, device, root, train, mov)
         # The 2D kernels also at [1,128,96]: the card's floor for their
         # launch configuration.
         timing["2d"] = timed("phase 5 2D serving", phase_timing, device,
@@ -4459,6 +4765,8 @@ def run(device, card: str) -> list[dict]:
             ["jacobian3d_fused", "curl3d_bwd", "jacobian3d_bwd"], (32, 8))
         timed("phase 5 LIQUID/KNOBS", phase_liquid_knob_timing, device,
               train, serving, train_timing, card)
+        timed("phase 5 GRAPH", phase_graph_timing, device, root, train, mov,
+              card)
         entry = timed("phase 13", phase_entry, device, card,
                       timing["2d"]["fields_per_s"])
         timed("phase 8", phase_sweep_on_device, device, serving, timing,
@@ -4635,6 +4943,71 @@ def activation_readings(device, card: str) -> None:
               flush=True)
 
 
+def train_path_side(tree: str) -> None:
+    """``python3 chip_smoke.py side <tree>``: one side of a parent/change
+    comparison inside one call, the tree at ``tree`` (``.``, or another
+    commit unpacked by ``git archive`` into a git-ignored directory)
+    measured by its own ``chip_smoke.py``: the 2D training path through
+    ``main`` (``phase_train``: streaming, cached and grain steps/s end to
+    end), its eager bf16 step at batch 8 and 64 and the 3D eager step at
+    8 (CUDA events, best of three and two), a batch-8 step's launches
+    (profile line) and, where the tree has the CUDA graph (``_steady``),
+    the graph's steady step at K = 1.  Prints one ``SIDE {json}`` line.
+    Run the sides in turns (parent, change, change, parent)."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    root = os.path.abspath(tree)
+    os.chdir(root)
+    sys.path.insert(0, root)
+    cs = importlib.import_module("chip_smoke")
+    from deepfluids_tpu_torch.config import get_config, load_config
+    from deepfluids_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda", 0)
+    cs.phase_build(cs.card_line())
+    out = {"tree": tree}
+    with tempfile.TemporaryDirectory(prefix="side_") as tmp:
+        train = cs.phase_train(dev, tmp, cs.PATH_2D)
+        out.update(train["steps_per_sec"], grain=train["grain"][
+            "steps_per_sec"])
+        t = Trainer(load_config(train["run"]), run_dir=train["run"],
+                    device=dev, save_cfg=False)
+        cx, cy = t._load_device_cache()
+        for b in (8, 64):
+            x, y = cx[:b].float(), cy[:b]
+            out[f"eager{b}_ms"] = min(cs.cuda_ms(
+                lambda: t._train_step(x, y), 20) for _ in range(3))
+        x, y = cx[:8].float(), cy[:8]
+        out["launches8"] = cs.profile_line(
+            f"side {tree} 2D step batch 8", lambda: t._train_step(x, y),
+            out["eager8_ms"])
+        data3 = cs.make_train_dataset(tmp, cs.PATH_3D)
+        t3 = Trainer(get_config([
+            "--is_train", "True", "--arch", "de", "--data_dir", data3,
+            "--dataset", cs.PATH_3D.dataset, "--log_dir",
+            os.path.join(tmp, "logs3d"), "--batch_size", "8",
+            "--compute_dtype", "bfloat16", "--device_data_cache", "true",
+            "--filters", str(cs.FLAGSHIP["filters"]), "--num_conv",
+            str(cs.FLAGSHIP["num_conv"])]), device=dev)
+        x3, y3 = (a[:8] for a in t3._load_device_cache())
+        x3 = x3.float()
+        out["eager3d8_ms"] = min(cs.cuda_ms(
+            lambda: t3._train_step(x3, y3), 10) for _ in range(2))
+        if hasattr(cs, "_steady"):
+            for b in (8, 64):
+                tb = Trainer(dataclasses.replace(
+                    t.c, batch_size=b, device_data_cache=True),
+                    run_dir=train["run"], device=dev, save_cfg=False)
+                tb._device_cache = t._device_cache
+                out[f"graph{b}_ms"] = cs._steady(
+                    tb, "graph", 1, 32 if b == 8 else 16)["wall_ms"]
+            out["graph3d8_ms"] = cs._steady(t3, "graph", 1, 16)["wall_ms"]
+    print("SIDE " + json.dumps(out), flush=True)
+
+
 def main() -> None:
     # The smoke runs on one card: show CUDA only the first visible one, so
     # the device count reported last is the card the run used.
@@ -4645,6 +5018,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA card")
+    if sys.argv[1:2] == ["side"] and len(sys.argv) == 3:
+        train_path_side(sys.argv[2])
+        return
     card = card_line()
     if sys.argv[1:] == ["readings"]:
         phase_build(card)

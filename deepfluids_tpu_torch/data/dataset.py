@@ -46,6 +46,14 @@ def step_batch_indices(seed: int, step: int, n: int,
         np.int32)
 
 
+def step_batch_indices_block(seed: int, step: int, k: int, n: int,
+                             batch_size: int) -> np.ndarray:
+    """``[k, batch_size]`` int32: row ``i`` is :func:`step_batch_indices`
+    at step ``step + i``, the draws of a chunk of ``k`` steps."""
+    return np.stack([step_batch_indices(seed, step + i, n, batch_size)
+                     for i in range(k)])
+
+
 class FieldDataset:
     """Random-access view over ``data/<name>/v/*.npz`` (field + raw params)."""
 

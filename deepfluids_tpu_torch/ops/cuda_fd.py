@@ -18,7 +18,11 @@ training loss differentiates through.
 
 ``launch_counts`` counts kernel launches per wrapper (plain integers, only
 incremented where a kernel is launched), so a run can show that its path
-went through the kernels.
+went through the kernels.  A launch made while the current stream is being
+captured into a CUDA graph runs nothing yet: it is counted in
+``capture_counts`` instead, and every replay of that graph adds the counts
+it captured to ``launch_counts`` (:func:`count_replay`), so the counts stay
+exact under replays.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ launch_counts: dict[str, int] = {
     "curl2d_fused": 0, "jacobian2d_fused": 0, "curl2d_bwd": 0,
     "jacobian2d_bwd": 0, "curl3d_fused": 0, "jacobian3d_fused": 0,
     "curl3d_bwd": 0, "jacobian3d_bwd": 0}
+# launches recorded into a CUDA graph under capture, not yet run
+capture_counts: dict[str, int] = dict.fromkeys(launch_counts, 0)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -40,6 +46,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def count_replay(captured: dict[str, int]) -> None:
+    """One replay of a graph that captured ``captured`` launches (a copy of
+    ``capture_counts`` taken after its capture) launched them all."""
+    for name, n in captured.items():
+        launch_counts[name] += n
 
 
 def _in_f32(fn: Callable, *xs: torch.Tensor):
@@ -77,7 +90,7 @@ def _launch(name: str, entry: str, ins: list[torch.Tensor | None],
     """Launch ``entry`` on ``ins`` (CUDA, checked; a ``None`` after the
     first is passed as a null pointer) into new channels-last outputs of
     ``out_channels`` channels each; count the launch."""
-    from deepfluids_tpu_torch.ops._build import library
+    from deepfluids_tpu_torch.ops import _build
 
     x = ins[0]
     for t in ins:
@@ -87,15 +100,21 @@ def _launch(name: str, entry: str, ins: list[torch.Tensor | None],
         if t is not None and t.data_ptr() % (vector * t.element_size()):
             raise ValueError(f"{name}: input storage is not aligned to "
                              f"{vector} channels")
+    capturing = torch.cuda.is_current_stream_capturing()
+    if capturing and _build._lib is None:
+        # loading the library initialises its CUDA runtime, which a capture
+        # forbids: the graph's warm-up must have launched the kernel first
+        raise RuntimeError(f"{name}: the kernel library must be built and "
+                           "loaded before a CUDA graph is captured")
     outs = [torch.empty(x.shape[:-1] + (c,), dtype=x.dtype, device=x.device)
             for c in out_channels]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(library(), entry)(
+    err = getattr(_build.library(), entry)(
         *(None if t is None else t.data_ptr() for t in ins + outs),
         *x.shape[:-1], _DTYPE_CODES[x.dtype], x.device.index, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    launch_counts[name] += 1
+    (capture_counts if capturing else launch_counts)[name] += 1
     return outs
 
 

@@ -55,6 +55,13 @@ def flip_signs(manifest) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.from_numpy(chan), torch.from_numpy(psign)
 
 
+def _draw_mask(seed: int, step: int, batch: int) -> torch.Tensor:
+    state = np.random.SeedSequence(
+        [seed ^ FLIP_SEED_XOR, step]).generate_state(1, np.uint64)[0]
+    gen = torch.Generator().manual_seed(int(state))
+    return torch.rand(batch, generator=gen) < 0.5
+
+
 def flip_mask(seed: int, step: int, batch: int,
               device: str | torch.device = "cpu") -> torch.Tensor:
     """The ``[batch]`` bool mask of the frames mirrored at global step
@@ -63,13 +70,17 @@ def flip_mask(seed: int, step: int, batch: int,
     0xF11B, step)``, then put on ``device``.  A CUDA device gets it from
     pinned memory without a sync (a copy from pageable memory would wait
     for the stream, so the host could not queue the step ahead of it)."""
-    state = np.random.SeedSequence(
-        [seed ^ FLIP_SEED_XOR, step]).generate_state(1, np.uint64)[0]
-    gen = torch.Generator().manual_seed(int(state))
-    mask = torch.rand(batch, generator=gen) < 0.5
+    mask = _draw_mask(seed, step, batch)
     if torch.device(device).type != "cuda":
         return mask
     return mask.pin_memory().to(device, non_blocking=True)
+
+
+def flip_mask_block(seed: int, step: int, k: int,
+                    batch: int) -> torch.Tensor:
+    """``[k, batch]`` bool on the CPU: row ``i`` is :func:`flip_mask` at
+    step ``step + i``, the masks of a chunk of ``k`` updates."""
+    return torch.stack([_draw_mask(seed, step + i, batch) for i in range(k)])
 
 
 def flip_x_batch(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,

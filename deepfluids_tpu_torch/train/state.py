@@ -9,6 +9,13 @@ s clamped at S = max_step, and optional global-norm clipping.  As in optax,
 the schedule is driven by the optimizer's update count: the first update
 uses lr(0).  The caller sets the learning rate before each update
 (:func:`set_lr`).
+
+On a CUDA card the one-card trainer's Adam is ``capturable`` and reads its
+learning rate from a device tensor (:func:`make_optimizer` with ``lr``), so
+its updates can be captured into a CUDA graph; the rate of each step comes
+from :func:`cosine_lr_table`.  Such an optimizer's ``state_dict`` is saved
+in the plain one's form (:func:`portable_optimizer_state`), so checkpoints
+move between the two.
 """
 
 from __future__ import annotations
@@ -36,16 +43,84 @@ def cosine_lr_schedule(lr_max: float, lr_min: float,
     return schedule
 
 
+def cosine_lr_table(lr_max: float, lr_min: float,
+                    max_step: int) -> np.ndarray:
+    """``[max_step + 1]`` float32: the value of
+    :func:`cosine_lr_schedule` at every step from 0 to ``max_step``, bit for
+    bit (the same float32 operations, on an array); :func:`lr_rows` clamps
+    past its end as the schedule does."""
+    f32 = np.float32
+    half_span = f32(0.5 * (lr_max - lr_min))
+    s = np.arange(max_step + 1, dtype=f32)
+    return f32(lr_min) + half_span * (
+        f32(1.0) + np.cos(f32(np.pi) * s / f32(max_step)))
+
+
+def lr_rows(table: np.ndarray, step: int, k: int) -> np.ndarray:
+    """``[k]`` float32: the rates of the updates ``step .. step + k - 1``
+    (the updates done before each), clamped at the table's end."""
+    return table[np.minimum(np.arange(step, step + k), len(table) - 1)]
+
+
 def make_optimizer(params: Iterable[torch.nn.Parameter], beta1: float = 0.5,
-                   beta2: float = 0.999) -> torch.optim.Adam:
-    """Adam as optax builds it; the learning rate is set per update."""
-    return torch.optim.Adam(params, lr=0.0, betas=(beta1, beta2),
-                            eps=ADAM_EPS)
+                   beta2: float = 0.999,
+                   lr: torch.Tensor | None = None) -> torch.optim.Adam:
+    """Adam as optax builds it; the learning rate is set per update.  With
+    ``lr``, a 0-d float32 tensor on the parameters' CUDA device, the
+    optimizer is ``capturable`` and reads its rate from that tensor: its
+    bias corrections are taken on the device in float32 (the plain one
+    takes them in Python's double), and a CUDA graph can capture its
+    update."""
+    if lr is None:
+        return torch.optim.Adam(params, lr=0.0, betas=(beta1, beta2),
+                                eps=ADAM_EPS)
+    return torch.optim.Adam(params, lr=lr, betas=(beta1, beta2),
+                            eps=ADAM_EPS, capturable=True)
 
 
 def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    """The rate of the next update, a float or a 0-d tensor: a
+    capturable optimizer's rate tensor takes it by ``copy_`` / ``fill_``
+    (no host sync); a plain optimizer takes it as a float."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        if not isinstance(group["lr"], torch.Tensor):
+            group["lr"] = float(lr)
+        elif isinstance(lr, torch.Tensor):
+            group["lr"].copy_(lr)
+        else:
+            group["lr"].fill_(lr)
+
+
+def portable_optimizer_state(sd: dict) -> dict:
+    """An Adam ``state_dict`` in the plain optimizer's form: each group's
+    rate a float and ``capturable`` off, each ``step`` a float32 scalar on
+    the CPU.  The checkpoint format of every run, so a checkpoint written
+    by a capturable optimizer resumes a plain one and the other way
+    round."""
+    groups = [{**g, "lr": float(g["lr"]), "capturable": False}
+              for g in sd["param_groups"]]
+    state = {i: {k: v.detach().to("cpu", torch.float32) if k == "step"
+                 else v for k, v in s.items()}
+             for i, s in sd["state"].items()}
+    return {**sd, "param_groups": groups, "state": state}
+
+
+def load_optimizer_state_(opt: torch.optim.Adam, sd: dict) -> None:
+    """``opt.load_state_dict(sd)`` that keeps ``opt``'s own rate tensor and
+    ``capturable`` flag (``load_state_dict`` takes the saved groups'), with
+    a capturable optimizer's ``step`` counts moved to their parameters'
+    device, as float32.  The state's tensors are new: a CUDA graph that
+    captured the old ones must be captured again."""
+    own = [(g["lr"], g["capturable"]) for g in opt.param_groups]
+    opt.load_state_dict(sd)
+    for group, (lr, capturable) in zip(opt.param_groups, own):
+        group["lr"], group["capturable"] = lr, capturable
+        if not capturable:
+            continue
+        for p in group["params"]:
+            st = opt.state.get(p)
+            if st and "step" in st:
+                st["step"] = st["step"].to(p.device, torch.float32)
 
 
 @torch.no_grad()

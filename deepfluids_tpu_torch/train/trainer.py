@@ -16,7 +16,10 @@ optimizer and cosine schedule (:mod:`.state`) on the CUDA card (or on
     (:mod:`..data.grain_loader`, "de" / "ae"), which a resume enters at its
     step without reading the batches before it;
     ``metrics.jsonl`` rows, sample dumps and checkpoints at the JAX
-    trainer's steps;
+    trainer's steps; on one CUDA card ("de" / "ae") each chunk of
+    ``--steps_per_call`` steps is one replay of a CUDA graph
+    (:mod:`.graph`, the counterpart of JAX's compiled step), elsewhere a
+    loop of eager steps;
   * :meth:`generate` ("de"), :meth:`reconstruct` / :meth:`encode` /
     :meth:`decode` ("ae") and :meth:`evaluate`: the serving path.
 
@@ -53,8 +56,8 @@ from deepfluids_tpu_torch.data import (
     CodeDataset,
     grain_loader,
     load_npz_batch,
-    step_batch_indices,
 )
+from deepfluids_tpu_torch.data.dataset import step_batch_indices_block
 from deepfluids_tpu_torch.infer.rollout import padded_chunks
 from deepfluids_tpu_torch.infer.score import score_rollout_vs_sim
 from deepfluids_tpu_torch.models import (
@@ -70,11 +73,15 @@ from deepfluids_tpu_torch.models import (
     state_dict_to_flax,
 )
 from deepfluids_tpu_torch.parallel import comm, mesh
-from deepfluids_tpu_torch.train import augment, losses
+from deepfluids_tpu_torch.train import augment, graph, losses
 from deepfluids_tpu_torch.train.state import (
     clip_by_global_norm_,
     cosine_lr_schedule,
+    cosine_lr_table,
+    load_optimizer_state_,
+    lr_rows,
     make_optimizer,
+    portable_optimizer_state,
     set_lr,
 )
 from deepfluids_tpu_torch.utils.images import save_image_grid
@@ -221,6 +228,18 @@ class Trainer:
         self._cut = mesh.shard_channels_(self.model, self.layout.model)
         self.lr_fn = cosine_lr_schedule(config.lr_max, config.lr_min,
                                         config.max_step)
+        self._lr_table = cosine_lr_table(config.lr_max, config.lr_min,
+                                         config.max_step)
+        # Adam's rate on the device (capturable) where the graph can run
+        self._lr = (torch.zeros((), device=self.device)
+                    if graph.device_lr(config, self.device, self.layout)
+                    else None)
+        # graph.GRAPH / EAGER, or CHUNK (the graph's body without capture)
+        self.step_path, why = graph.choose_path(config, self.device,
+                                                self.layout)
+        if config.is_train:
+            log.info("train step path: %s (%s)", self.step_path, why)
+        self._chunks: graph.StepGraph | None = None  # the last train()'s
         self.step = 0      # optimizer updates done; drives the schedule
         self._metrics_path = os.path.join(self.run_dir, "metrics.jsonl")
         self._device_cache: tuple[torch.Tensor, torch.Tensor] | None = None
@@ -358,7 +377,7 @@ class Trainer:
         never needs it, and building one imports ``torch._dynamo``, which
         takes seconds."""
         return make_optimizer(self.model.parameters(), self.c.beta1,
-                              self.c.beta2)
+                              self.c.beta2, lr=self._lr)
 
     def _loss_fn(self, model: torch.nn.Module, a: torch.Tensor,
                  b: torch.Tensor, step: int = 0) -> tuple[torch.Tensor, dict]:
@@ -449,15 +468,29 @@ class Trainer:
         """One Adam update at lr(updates done so far); the step's losses as
         device tensors.  Under ``--augment_flip_x`` a random half of the
         field batch is mirrored first (the mask a pure function of (seed,
-        updates done))."""
+        updates done)).  The host part of an eager step: its mask and rate,
+        then :meth:`_update`."""
+        mask = None
         if self._flip is not None:
             # drawn for the global batch; a rank mirrors its rows of it
             group = self.layout.batch
-            mask = augment.flip_mask(self.c.seed, self.step,
-                                     a.shape[0] * group.size, a.device)
-            a, b = augment.flip_x_batch(a, b, mesh.local_rows(mask, group),
-                                        *self._flip)
-        set_lr(self.opt, self.lr_fn(self.step))
+            mask = mesh.local_rows(augment.flip_mask(
+                self.c.seed, self.step, a.shape[0] * group.size, a.device),
+                group)
+        aux = self._update(a, b, mask, self.lr_fn(self.step))
+        self.step += 1
+        return aux
+
+    def _update(self, a: torch.Tensor, b: torch.Tensor,
+                mask: torch.Tensor | None,
+                lr: float | torch.Tensor) -> dict[str, torch.Tensor]:
+        """The device body of one step, which a CUDA graph captures: the
+        x-mirror of ``mask``'s frames, the loss, backward, clipping and an
+        Adam update at rate ``lr``; the losses as device tensors.  Leaves
+        ``self.step`` to the caller."""
+        if mask is not None:
+            a, b = augment.flip_x_batch(a, b, mask, *self._flip)
+        set_lr(self.opt, lr)
         loss, aux = self._backward(a, b)
         if self.c.debug_nans:
             self._raise_if_not_finite(loss)
@@ -468,7 +501,6 @@ class Trainer:
             clip_by_global_norm_([p.grad for p in self.model.parameters()],
                                  self.c.grad_clip, norm)
         self.opt.step()
-        self.step += 1
         aux["loss"] = loss
         return {k: v.detach() for k, v in aux.items()}
 
@@ -636,6 +668,48 @@ class Trainer:
             self._device_cache = (x, y.to(self.device))
         return self._device_cache
 
+    def _cache_indices(self, step: int, k: int) -> np.ndarray:
+        """``[k, B]`` indices into the device cache of global steps ``step
+        .. step + k - 1``: draws over the train subset, or, in pair mode,
+        over the frames with a same-scene successor, ``[t ; t + 1]`` (``[k,
+        2B]``)."""
+        c = self.c
+        pool = (self.bm.train_pair_indices if self.pair_mode
+                else self.bm.train_indices)
+        idx = pool[step_batch_indices_block(c.seed, step, k, len(pool),
+                                            c.batch_size)]
+        if self.pair_mode:
+            idx = np.concatenate([idx, self.bm.ds.successor[idx]], axis=1)
+        return idx
+
+    def _cache_batch(self, idx: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The device cache's rows ``idx`` (a device tensor): fields in
+        f32, params."""
+        cache_x, cache_y = self._load_device_cache()
+        return cache_x[idx].float(), cache_y[idx]
+
+    def _host_batches(self, num_steps: int, start: int):
+        """The host batches ``(x, y)`` of steps ``start + 1 .. start +
+        num_steps``: ``--input_pipeline grain``'s stream (page-locked
+        tensors on the card) or the native one (numpy)."""
+        c = self.c
+        if c.input_pipeline != "grain":
+            return self.bm.batches(num_steps, start_step=start)
+        # Every rank reads the one global stream (shard 0 of 1) and keeps
+        # its rows, as on the native path.
+        if start:
+            log.info("grain resume: sampler-state skip of %d batches "
+                     "(decode-free)", start)
+        self._stream = grain_loader.make_grain_loader(
+            c.dataset_dir, c.batch_size, seed=c.seed,
+            field_key="l" if c.data_type == "levelset" else "v",
+            worker_count=min(c.num_worker, 4),
+            indices=self.bm.train_indices if c.eval_holdout_scenes
+            else None,
+            skip_batches=start, pin_memory=self.device.type == "cuda")
+        return self._stream
+
     def _batch_source(self, num_steps: int, start: int):
         """``batch(step)`` -> the (a, b) tensors of global step ``step`` on
         the device, for steps ``start + 1 .. start + num_steps`` in
@@ -649,50 +723,78 @@ class Trainer:
                         torch.from_numpy(p).to(self.device))
             return batch
         if c.device_data_cache:
-            cache_x, cache_y = self._load_device_cache()
-            # Draws over the train subset (pair mode: frames with a
-            # same-scene successor, gathering [t-rows ; (t+1)-rows]).
-            pool = (self.bm.train_pair_indices if self.pair_mode
-                    else self.bm.train_indices)
-
             def batch(step: int) -> tuple[torch.Tensor, torch.Tensor]:
-                idx = pool[step_batch_indices(c.seed, step, len(pool),
-                                              c.batch_size)]
-                if self.pair_mode:
-                    idx = np.concatenate([idx, self.bm.ds.successor[idx]])
                 # a rank gathers its rows (spatial: every index, its rows
                 # of each field are the cache's)
-                idx = mesh.local_rows(idx, lay.batch, pair=self.pair_mode)
-                idx = torch.from_numpy(idx).to(self.device)
-                return cache_x[idx].float(), cache_y[idx]
+                idx = mesh.local_rows(self._cache_indices(step, 1)[0],
+                                      lay.batch, pair=self.pair_mode)
+                return self._cache_batch(torch.from_numpy(idx).to(
+                    self.device))
             return batch
+        it = self._host_batches(num_steps, start)
         if c.input_pipeline == "grain":
-            # Every rank reads the one global stream (shard 0 of 1) and
-            # keeps its rows, as on the native path.
-            if start:
-                log.info("grain resume: sampler-state skip of %d batches "
-                         "(decode-free)", start)
-            self._stream = grain_loader.make_grain_loader(
-                c.dataset_dir, c.batch_size, seed=c.seed,
-                field_key="l" if c.data_type == "levelset" else "v",
-                worker_count=min(c.num_worker, 4),
-                indices=self.bm.train_indices if c.eval_holdout_scenes
-                else None,
-                skip_batches=start, pin_memory=self.device.type == "cuda")
-            it = self._stream
-
             def batch(step: int) -> tuple[torch.Tensor, torch.Tensor]:
                 x, y = self.local_batch(*next(it))
                 return (x.to(self.device, non_blocking=True),
                         y.to(self.device, non_blocking=True))
             return batch
-        it = self.bm.batches(num_steps, start_step=start)
 
         def batch(step: int) -> tuple[torch.Tensor, torch.Tensor]:
             x, y = self.local_batch(*next(it))
             return (torch.as_tensor(x).contiguous().to(self.device),
                     torch.as_tensor(y).to(self.device))
         return batch
+
+    def _chunk_blocks(self, num_steps: int, start: int, k: int):
+        """``block(step)`` -> the host inputs of the chunk of ``k`` updates
+        after ``step`` updates (:meth:`graph.StepGraph.fill`): the rates,
+        the x-mirror's masks, and the cache's indices or the stream's next
+        ``k`` batches.  Row ``i`` of each is what the eager step ``step + i
+        + 1`` takes."""
+        c = self.c
+        it = (None if c.device_data_cache
+              else self._host_batches(num_steps, start))
+
+        def block(step: int) -> dict:
+            out = {"lr": lr_rows(self._lr_table, step, k)}
+            if self._flip is not None:
+                out["mask"] = augment.flip_mask_block(c.seed, step, k,
+                                                      c.batch_size)
+            if it is None:
+                out["idx"] = self._cache_indices(step + 1, k)
+            else:
+                rows = [next(it) for _ in range(k)]
+                out["x"] = [x for x, _ in rows]
+                out["y"] = [y for _, y in rows]
+            return out
+        return block
+
+    def _chunk_runner(self, num_steps: int, start: int, k: int):
+        """``run(take)`` -> the last losses of the next ``take`` steps
+        (``take`` is ``k`` on the chunked paths)."""
+        if self.step_path == graph.EAGER:
+            batch = self._batch_source(num_steps, start)
+
+            def run(take: int) -> dict[str, torch.Tensor]:
+                for _ in range(take):
+                    aux = self._train_step(*batch(self.step + 1))
+                return aux
+            return run
+        chunks = self._chunks = graph.StepGraph(
+            self, k, capture=self.step_path == graph.GRAPH)
+        block = self._chunk_blocks(num_steps, start, k)
+
+        def run(take: int) -> dict[str, torch.Tensor]:
+            chunks.fill(block(self.step))
+            aux = chunks.run()
+            self.step += take
+            if chunks.replays == 1:
+                log.info("captured %d steps as one CUDA graph in %.2f s "
+                         "(pool %.1f MB, FD launches a replay %s)", k,
+                         chunks.capture_s, chunks.pool_bytes / 2 ** 20,
+                         chunks.captured)
+            return aux
+        return run
 
     def train(self, num_steps: int | None = None) -> dict:
         """Train ``num_steps`` (default ``--max_step``) more steps; returns
@@ -713,14 +815,13 @@ class Trainer:
         t0 = time.time()
         seen = 0
         try:
-            batch = self._batch_source(num_steps, start)
+            run = self._chunk_runner(num_steps, start, k)
             with (open(self._metrics_path, "a") if self._main
                   else open(os.devnull, "w")) as mf:
                 while seen < num_steps:
                     take = min(k, num_steps - seen)
                     self._profile_window(start + seen + take, take)
-                    for _ in range(take):
-                        aux = self._train_step(*batch(self.step + 1))
+                    aux = run(take)
                     seen += take
                     step = start + seen
                     if _crossed(c.log_step, step, take) or seen == num_steps:
@@ -780,8 +881,8 @@ class Trainer:
         # the whole model (the cut convs gathered): any layout resumes it
         shard = self.layout.model
         params = mesh.gather_cut(self.model.state_dict(), self._cut, shard)
-        opt_state = mesh.full_optimizer_state(self.opt, self.model,
-                                              self._cut, shard)
+        opt_state = portable_optimizer_state(mesh.full_optimizer_state(
+            self.opt, self.model, self._cut, shard))
         if not self._main:
             return path
         tmp = path + ".tmp"
@@ -799,7 +900,9 @@ class Trainer:
 
     def restore_checkpoint(self, step: int | None = None) -> int:
         """Restore the latest (or the given) checkpoint; the restored step.
-        The betas are this run's flags, as a JAX resume rebuilds them."""
+        The betas are this run's flags, as a JAX resume rebuilds them.  The
+        optimizer's state tensors are new, so a captured graph is dropped
+        (the next ``train`` captures again)."""
         if step is None:
             steps = self.checkpoint_steps()
             if not steps:
@@ -811,7 +914,8 @@ class Trainer:
         shard = self.layout.model
         self.model.load_state_dict(
             mesh.local_state_dict(state["params"], self._cut, shard))
-        self.opt.load_state_dict(mesh.local_optimizer_state(
+        self._chunks = None
+        load_optimizer_state_(self.opt, mesh.local_optimizer_state(
             state["opt_state"], self.opt, self.model, self._cut, shard))
         for group in self.opt.param_groups:
             group["betas"] = (self.c.beta1, self.c.beta2)

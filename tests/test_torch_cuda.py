@@ -777,3 +777,105 @@ def test_datagen_cli_raises_without_a_card(tmp_path):
         cli.main(["--scene", "liquid_pos10_size4", "--out", str(tmp_path),
                   "--num-a", "1", "--num-b", "1", "--num-frames", "2"])
     assert not os.listdir(tmp_path)
+
+
+# --- the train step as a CUDA graph (train/graph.py) -------------------------
+
+def _graph_pair(cfg: Config, device, k: int) -> tuple[Trainer, Trainer]:
+    """Two trainers of ``cfg`` at ``--steps_per_call k``: one on the graph
+    path, one running the graph's body eagerly."""
+    from deepfluids_tpu_torch.train import graph
+
+    cfg = Config(**{**cfg.__dict__, "steps_per_call": k})
+    out = []
+    for tag, path in (("g", graph.GRAPH), ("e", graph.CHUNK)):
+        t = Trainer(Config(**{**cfg.__dict__, "tag": tag}), device=device)
+        assert t.step_path == graph.GRAPH and t._lr is not None
+        t.step_path = path
+        out.append(t)
+    return tuple(out)
+
+
+def _same_state(got: Trainer, want: Trainer) -> None:
+    assert got.step == want.step
+    for k, v in want.model.state_dict().items():
+        torch.testing.assert_close(got.model.state_dict()[k], v, atol=0,
+                                   rtol=0, msg=k)
+    ws, gs = want.opt.state_dict()["state"], got.opt.state_dict()["state"]
+    for i, st in ws.items():
+        for name, v in st.items():
+            torch.testing.assert_close(gs[i][name], v, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("what", ["de_flip_clip_cache", "de_stream",
+                                  "ae_pair_cache"])
+def test_graph_equals_its_body_run_eagerly(cuda_device, tmp_path, what, k):
+    # The replays of one captured chunk against the same body eagerly: the
+    # same weights, Adam state and losses, bit for bit; the graph's FD
+    # launches counted through capture x replays.
+    if what.startswith("ae"):
+        cfg = _mov_config(_tiny_mov(tmp_path), ae_pred_w=0.5,
+                          device_data_cache=True)
+    else:
+        cfg = Config(data_dir=_tiny_set(tmp_path, "vel", 2), dataset="vel",
+                     filters=8, num_conv=1, batch_size=4, num_worker=1,
+                     log_dir=str(tmp_path), log_step=4,
+                     augment_flip_x=what != "de_stream",
+                     grad_clip=0.05 if "clip" in what else 0.0,
+                     device_data_cache="cache" in what)
+    g, e = _graph_pair(cfg, cuda_device, k)
+    cuda_fd.reset_launch_counts()
+    got = g.train(num_steps=12)
+    torch.cuda.synchronize()
+    assert g._chunks.graph is not None
+    assert g._chunks.replays == 12 // k - 1
+    step = {"curl2d_fused": 1, "curl2d_bwd": 1, "jacobian2d_fused": 2,
+            "jacobian2d_bwd": 1}
+    assert g._chunks.captured == {n: k * c for n, c in step.items()}
+    zeros = dict.fromkeys(cuda_fd.launch_counts, 0)
+    assert cuda_fd.launch_counts == {**zeros,
+                                     **{n: 12 * c for n, c in step.items()}}
+    want = e.train(num_steps=12)
+    assert got == want
+    _same_state(g, e)
+
+
+@pytest.mark.cuda
+def test_restore_drops_a_captured_graph(cuda_device, tmp_path):
+    # A trainer that holds a captured graph restores a checkpoint (new Adam
+    # state tensors) and trains on: the uninterrupted run's state.
+    cfg = Config(data_dir=_tiny_set(tmp_path, "vel", 2), dataset="vel",
+                 filters=8, num_conv=1, batch_size=4, num_worker=1,
+                 log_dir=str(tmp_path), device_data_cache=True,
+                 save_step=8, augment_flip_x=True)
+    g, e = _graph_pair(cfg, cuda_device, 2)
+    e.train(num_steps=16)
+    g.train(num_steps=8)              # checkpoint at 8
+    g.train(num_steps=4)              # a graph captured past it
+    assert g._chunks.graph is not None
+    assert g.restore_checkpoint(8) == 8 and g._chunks is None
+    g.train(num_steps=8)
+    assert g._chunks.graph is not None
+    _same_state(g, e)
+
+
+@pytest.mark.cuda
+def test_a_capture_that_fails_raises(cuda_device, tmp_path, monkeypatch):
+    # A host read inside the captured body is refused by the capture: the
+    # run raises (no eager fallback hides it).
+    cfg = Config(data_dir=_tiny_set(tmp_path, "vel", 2), dataset="vel",
+                 filters=8, num_conv=1, batch_size=4, num_worker=1,
+                 log_dir=str(tmp_path), device_data_cache=True)
+    t = Trainer(cfg, device=cuda_device)
+    batch = t._cache_batch
+
+    def reads_the_host(idx):
+        float(idx.sum())
+        return batch(idx)
+
+    monkeypatch.setattr(t, "_cache_batch", reads_the_host)
+    with pytest.raises(RuntimeError):
+        t.train(num_steps=3)
+    torch.cuda.synchronize()

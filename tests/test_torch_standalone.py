@@ -45,10 +45,11 @@ _IMPORT_ALL = _REFUSE + """
 import deepfluids_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     deepfluids_tpu_torch.__path__, "deepfluids_tpu_torch.")]
-# the twins of the repo root's entry points and of the grain loader among
-# them
+# the twins of the repo root's entry points, of the grain loader and of
+# the JAX trainer's compiled step among them
 assert {"deepfluids_tpu_torch.bench", "deepfluids_tpu_torch.graft_entry",
-        "deepfluids_tpu_torch.data.grain_loader"} <= set(names), names
+        "deepfluids_tpu_torch.data.grain_loader",
+        "deepfluids_tpu_torch.train.graph"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
