@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from numpy.lib import format as npfmt
 
+from deepfluids_tpu_torch import spans
 from deepfluids_tpu_torch.data import Manifest
 from deepfluids_tpu_torch.utils.images import save_field_image, save_gif
 
@@ -100,7 +101,9 @@ def sweep_on_device(
     there and copied back in one copy into a pinned host buffer (pageable
     memory on a CPU device).  The full 2D grid (21 000 fields, 2.06 GB)
     takes two segments of the default 1 GiB at batch 512; the full 3D grid
-    (3 750 fields, 10.3 GB) ten at batch 32.
+    (3 750 fields, 10.3 GB) ten at batch 32.  Each segment's copy from the
+    pinned buffer into the output is the span ``sweep.host_copy``
+    (:mod:`..spans`).
     """
     device = torch.device(device)
     n = raw_params.shape[0]
@@ -127,7 +130,8 @@ def sweep_on_device(
                 buf[i:i + batch_size] = apply_fn(seg[i:i + batch_size])
             host.copy_(buf.mul_(manifest.v_scale))   # raw units
             if len(segs) > 1:
-                out[k * per_seg:(k + 1) * per_seg] = host.numpy()
+                with spans.span("sweep.host_copy"):
+                    out[k * per_seg:(k + 1) * per_seg] = host.numpy()
     return out[:n]
 
 

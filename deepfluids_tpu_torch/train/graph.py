@@ -31,15 +31,22 @@ under capture counts in ``cuda_fd.capture_counts``; each replay adds
 those counts to ``cuda_fd.launch_counts``.  A capture or replay that fails
 raises: there is no eager fallback.
 
+The host's part of a chunk is timed by spans (:mod:`..spans`):
+``train.fill`` (with ``train.stage_wait``, the wait on a staging buffer's
+event), ``train.warmup``, ``train.capture`` (its length is ``capture_s``)
+and ``train.replay`` (on the chunked path, the body run eagerly); none is
+opened inside the captured body.
+
 :func:`choose_path` decides where the graph applies.
 """
 
 from __future__ import annotations
 
-import time
+import gc
 
 import torch
 
+from deepfluids_tpu_torch import spans
 from deepfluids_tpu_torch.ops import cuda_fd
 
 GRAPH = "graph"   # K steps captured once, replayed once a chunk
@@ -120,25 +127,27 @@ class StepGraph:
     def fill(self, block: dict) -> None:
         """The static inputs of the next chunk from host ``block``: per
         name an array ``[k, ...]`` or a list of ``k`` rows."""
-        slot = self._slot
-        stage = self._staging[slot]
-        if self._events[slot] is not None:
-            self._events[slot].synchronize()    # its last copy has run
-        for name, rows in block.items():
-            dst = stage[name]
-            if isinstance(rows, (list, tuple)):
-                for i, row in enumerate(rows):
-                    dst[i].copy_(torch.as_tensor(row))
-            else:
-                dst.copy_(torch.as_tensor(rows))
-        if stage is self.static:
-            return
-        for name, dst in self.static.items():
-            dst.copy_(stage[name], non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        self._events[slot] = event
-        self._slot = 1 - slot
+        with spans.span("train.fill"):
+            slot = self._slot
+            stage = self._staging[slot]
+            if self._events[slot] is not None:
+                with spans.span("train.stage_wait"):
+                    self._events[slot].synchronize()  # its last copy has run
+            for name, rows in block.items():
+                dst = stage[name]
+                if isinstance(rows, (list, tuple)):
+                    for i, row in enumerate(rows):
+                        dst[i].copy_(torch.as_tensor(row))
+                else:
+                    dst.copy_(torch.as_tensor(rows))
+            if stage is self.static:
+                return
+            for name, dst in self.static.items():
+                dst.copy_(stage[name], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            self._events[slot] = event
+            self._slot = 1 - slot
 
     def _body(self) -> dict[str, torch.Tensor]:
         """The chunk's ``k`` updates on the static inputs; the last one's
@@ -158,20 +167,25 @@ class StepGraph:
         losses as device tensors (under a graph its static outputs, which
         the next replay overwrites: read them before it)."""
         if not self.capture:
-            return self._body()
+            with spans.span("train.replay"):
+                return self._body()
         dev = self.trainer.device
         if not self._warm:
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                aux = self._body()
-            torch.cuda.current_stream(dev).wait_stream(side)
+            with spans.span("train.warmup"):
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    aux = self._body()
+                torch.cuda.current_stream(dev).wait_stream(side)
             self._warm = True
             return aux
         if self.graph is None:
-            self._capture()
-        self.graph.replay()
-        cuda_fd.count_replay(self.captured)
+            with spans.span("train.capture") as took:
+                self._capture()
+            self.capture_s = took.ns * 1e-9
+        with spans.span("train.replay"):
+            self.graph.replay()
+            cuda_fd.count_replay(self.captured)
         self.replays += 1
         return self.aux
 
@@ -183,13 +197,19 @@ class StepGraph:
         cuda_fd.capture_counts.update(dict.fromkeys(cuda_fd.capture_counts,
                                                     0))
         graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        # thread_local: a host thread of the input pipeline (grain's
-        # pinning thread) may allocate while this one captures
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            aux = self._body()
+        # No garbage collection inside the capture: a dead trainer's graph
+        # freed there (CUDAGraph.reset) would invalidate it.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # thread_local: a host thread of the input pipeline (grain's
+            # pinning thread) may allocate while this one captures
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                aux = self._body()
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize(dev)
-        self.capture_s = time.perf_counter() - t0
         self.captured = {n: c for n, c in cuda_fd.capture_counts.items()
                          if c}
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved

@@ -16,10 +16,12 @@ optimizer and cosine schedule (:mod:`.state`) on the CUDA card (or on
     (:mod:`..data.grain_loader`, "de" / "ae"), which a resume enters at its
     step without reading the batches before it;
     ``metrics.jsonl`` rows, sample dumps and checkpoints at the JAX
-    trainer's steps; on one CUDA card ("de" / "ae") each chunk of
-    ``--steps_per_call`` steps is one replay of a CUDA graph
-    (:mod:`.graph`, the counterpart of JAX's compiled step), elsewhere a
-    loop of eager steps;
+    trainer's steps (each row's ``host_s``: the host seconds of each span
+    of :mod:`..spans` since the row before, checkpoints, sample dumps,
+    captures and staging waits among them); on one CUDA card ("de" /
+    "ae") each chunk of ``--steps_per_call`` steps is one replay of a CUDA
+    graph (:mod:`.graph`, the counterpart of JAX's compiled step),
+    elsewhere a loop of eager steps;
   * :meth:`generate` ("de"), :meth:`reconstruct` / :meth:`encode` /
     :meth:`decode` ("ae") and :meth:`evaluate`: the serving path.
 
@@ -50,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+from deepfluids_tpu_torch import spans
 from deepfluids_tpu_torch.config import Config, load_config, save_config
 from deepfluids_tpu_torch.data import (
     BatchManager,
@@ -167,6 +170,14 @@ def _parse_profile_steps(spec: str) -> tuple[int, int] | None:
         raise ValueError(f"--profile_steps {spec!r}: expected 'lo,hi' "
                          "(two step numbers)") from None
     return lo, hi
+
+
+def _host_seconds() -> dict[str, float]:
+    """``metrics.jsonl``'s ``host_s``: the host seconds of each span
+    (:mod:`..spans`) since the last call, spans that took none left out."""
+    seconds = {name: round(ns * 1e-9, 6)
+               for name, (_, ns, _) in sorted(spans.take().items())}
+    return {name: s for name, s in seconds.items() if s}
 
 
 def _crossed(period: int, step: int, take: int) -> bool:
@@ -583,11 +594,18 @@ class Trainer:
         if self._profiler is None and step >= lo and step - take < hi:
             from torch.profiler import ProfilerActivity, profile
 
+            cuda = self.device.type == "cuda"
             activities = [ProfilerActivity.CPU]
-            if self.device.type == "cuda":
+            if cuda:
                 activities.append(ProfilerActivity.CUDA)
+                # the sentinel's kernel loads before the window opens, so
+                # its first launch is not timed in it
+                torch.cuda._sleep(1000)
             self._profiler = profile(activities=activities)
             self._profiler.start()
+            if cuda:
+                # a fresh window can lose its first device record
+                torch.cuda._sleep(1000)
         elif self._profiler is not None and step > hi:
             self._stop_profiler()
 
@@ -650,7 +668,13 @@ class Trainer:
         """The whole normalized dataset on the device, once: fields in
         ``--cache_dtype``, params in f32, in the dataset's file order;
         under ``--spatial_shard`` the rank's rows of each field."""
-        if self._device_cache is None:
+        if self._device_cache is not None:
+            return self._device_cache
+        # first reached in an eager chunk (the warm-up before a capture)
+        assert not (self.device.type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()), \
+            "the device cache is staged under a CUDA graph capture"
+        with spans.span("train.stage_cache"):
             c, m = self.c, self.manifest
             files = self.bm.ds.files
             x = load_npz_batch(files, "x", m.field_shape,
@@ -756,16 +780,17 @@ class Trainer:
               else self._host_batches(num_steps, start))
 
         def block(step: int) -> dict:
-            out = {"lr": lr_rows(self._lr_table, step, k)}
-            if self._flip is not None:
-                out["mask"] = augment.flip_mask_block(c.seed, step, k,
-                                                      c.batch_size)
-            if it is None:
-                out["idx"] = self._cache_indices(step + 1, k)
-            else:
-                rows = [next(it) for _ in range(k)]
-                out["x"] = [x for x, _ in rows]
-                out["y"] = [y for _, y in rows]
+            with spans.span("train.block"):
+                out = {"lr": lr_rows(self._lr_table, step, k)}
+                if self._flip is not None:
+                    out["mask"] = augment.flip_mask_block(c.seed, step, k,
+                                                          c.batch_size)
+                if it is None:
+                    out["idx"] = self._cache_indices(step + 1, k)
+                else:
+                    rows = [next(it) for _ in range(k)]
+                    out["x"] = [x for x, _ in rows]
+                    out["y"] = [y for _, y in rows]
             return out
         return block
 
@@ -825,20 +850,22 @@ class Trainer:
                     seen += take
                     step = start + seen
                     if _crossed(c.log_step, step, take) or seen == num_steps:
-                        last = self._reported(aux)
-                        rate = seen / (time.time() - t0)
-                        mf.write(json.dumps({"step": step,
-                                             "steps_per_sec": round(rate, 3),
-                                             **last}) + "\n")
-                        mf.flush()
-                        if self._tb is not None:
-                            for name, v in last.items():
-                                self._tb.add_scalar(name, v, step)
+                        with spans.span("train.log_sync"):
+                            last = self._reported(aux)
+                            rate = seen / (time.time() - t0)
+                            mf.write(json.dumps({
+                                "step": step, "steps_per_sec": round(rate, 3),
+                                **last, "host_s": _host_seconds()}) + "\n")
+                            mf.flush()
+                            if self._tb is not None:
+                                for name, v in last.items():
+                                    self._tb.add_scalar(name, v, step)
                         log.info("step %d loss %.5f (%.2f it/s)", step,
                                  last["loss"], rate)
                     self._inject_fault(step)
                     if _crossed(c.test_step, step, take):
-                        self._dump_samples(step)
+                        with spans.span("train.sample_dump"):
+                            self._dump_samples(step)
                     if _crossed(c.save_step, step, take) or seen == num_steps:
                         self.save_checkpoint()
         finally:
@@ -877,26 +904,30 @@ class Trainer:
         The data order (and the ``--nn_noise`` stream) is a pure function
         of (seed, step), so params, Adam state and step are the whole
         state: a resumed run replays the uninterrupted one bit for bit."""
-        path = os.path.join(self.ckpt_dir, str(self.step))
-        # the whole model (the cut convs gathered): any layout resumes it
-        shard = self.layout.model
-        params = mesh.gather_cut(self.model.state_dict(), self._cut, shard)
-        opt_state = portable_optimizer_state(mesh.full_optimizer_state(
-            self.opt, self.model, self._cut, shard))
-        if not self._main:
+        with spans.span("train.checkpoint"):
+            path = os.path.join(self.ckpt_dir, str(self.step))
+            # the whole model (the cut convs gathered): any layout resumes it
+            shard = self.layout.model
+            params = mesh.gather_cut(self.model.state_dict(), self._cut,
+                                     shard)
+            opt_state = portable_optimizer_state(mesh.full_optimizer_state(
+                self.opt, self.model, self._cut, shard))
+            if not self._main:
+                return path
+            tmp = path + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save({"params": params, "opt_state": opt_state,
+                        "step": self.step}, os.path.join(tmp, CKPT_FILE))
+            shutil.rmtree(path, ignore_errors=True)
+            os.replace(tmp, path)
+            with spans.span("train.weights_npz"):
+                save_flax_npz(self.model,
+                              os.path.join(self.run_dir, WEIGHTS_FILE),
+                              params)
+            for old in self.checkpoint_steps()[:-CKPT_KEEP]:
+                shutil.rmtree(os.path.join(self.ckpt_dir, str(old)))
             return path
-        tmp = path + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save({"params": params, "opt_state": opt_state,
-                    "step": self.step}, os.path.join(tmp, CKPT_FILE))
-        shutil.rmtree(path, ignore_errors=True)
-        os.replace(tmp, path)
-        save_flax_npz(self.model, os.path.join(self.run_dir, WEIGHTS_FILE),
-                      params)
-        for old in self.checkpoint_steps()[:-CKPT_KEEP]:
-            shutil.rmtree(os.path.join(self.ckpt_dir, str(old)))
-        return path
 
     def restore_checkpoint(self, step: int | None = None) -> int:
         """Restore the latest (or the given) checkpoint; the restored step.

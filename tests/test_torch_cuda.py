@@ -879,3 +879,89 @@ def test_a_capture_that_fails_raises(cuda_device, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError):
         t.train(num_steps=3)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_graph_spans_in_a_profiled_run(cuda_device, tmp_path):
+    # --profile_steps over the warm-up, the capture and four replays: the
+    # chunk feed's spans are user_annotation rows on the clock of the
+    # kernel rows, none inside the capture; the trajectory is the one of
+    # the run without the profiler; metrics.jsonl's host_s holds the
+    # capture and the checkpoint.
+    import glob
+    import json
+
+    from deepfluids_tpu_torch import spans
+    from deepfluids_tpu_torch.train import graph
+
+    spans.take()                  # what earlier tests left behind
+    cfg = Config(data_dir=_tiny_set(tmp_path, "vel", 2), dataset="vel",
+                 filters=8, num_conv=1, batch_size=4, num_worker=1,
+                 log_dir=str(tmp_path), log_step=2, save_step=4,
+                 device_data_cache=True, augment_flip_x=True)
+    traced = Trainer(Config(**{**cfg.__dict__, "tag": "p",
+                               "profile_steps": "1,6",
+                               "profile_dir": str(tmp_path / "prof")}),
+                     device=cuda_device)
+    plain = Trainer(Config(**{**cfg.__dict__, "tag": "q"}),
+                    device=cuda_device)
+    assert traced.step_path == plain.step_path == graph.GRAPH
+    assert traced.train(num_steps=8) == plain.train(num_steps=8)
+    _same_state(traced, plain)
+    [path] = glob.glob(str(tmp_path / "prof" / "*.trace.json"))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    rows = sorted((e for e in events if e.get("cat") == "user_annotation"
+                   and e["name"].startswith("train.")),
+                  key=lambda e: e["ts"])
+    named = {}
+    for e in rows:
+        named.setdefault(e["name"], []).append(e)
+    assert len(named["train.block"]) == 6
+    assert len(named["train.warmup"]) == len(named["train.capture"]) == 1
+    assert len(named["train.replay"]) == 5
+    assert len(named["train.fill"]) == 6
+    [cap] = named["train.capture"]
+    end = cap["ts"] + cap["dur"]
+    assert not any(cap["ts"] <= e["ts"] < end for e in rows if e is not cap)
+    # each replay's kernels start within a second of its span
+    kernels = [e["ts"] for e in events if e.get("cat") == "kernel"]
+    for r in named["train.replay"]:
+        assert any(r["ts"] <= k <= r["ts"] + 1e6 for k in kernels)
+    assert 0 < traced._chunks.capture_s <= cap["dur"] * 1e-6
+    with open(os.path.join(traced.run_dir, "metrics.jsonl")) as f:
+        host = [json.loads(ln)["host_s"] for ln in f]
+    assert host[0]["train.capture"] == pytest.approx(
+        traced._chunks.capture_s, abs=2e-6)
+    assert host[2]["train.checkpoint"] > 0          # saved after step 4
+
+
+@pytest.mark.cuda
+def test_no_garbage_collection_inside_a_capture(cuda_device, tmp_path,
+                                                 monkeypatch):
+    # A finished trainer lives on in a reference cycle (the trainer and
+    # its StepGraph) until the collector runs; a collection inside another
+    # trainer's capture would free that graph there and invalidate the
+    # capture. The collector is off in the captured body, on after it.
+    import gc
+
+    from deepfluids_tpu_torch.train import graph
+
+    cfg = Config(data_dir=_tiny_set(tmp_path, "vel", 2), dataset="vel",
+                 filters=8, num_conv=1, batch_size=4, num_worker=1,
+                 log_dir=str(tmp_path), device_data_cache=True)
+    t = Trainer(cfg, device=cuda_device)
+    body, seen = graph.StepGraph._body, []
+
+    def watched(self):
+        seen.append((torch.cuda.is_current_stream_capturing(),
+                     gc.isenabled()))
+        return body(self)
+
+    monkeypatch.setattr(graph.StepGraph, "_body", watched)
+    assert gc.isenabled()
+    t.train(num_steps=3)
+    assert t._chunks.graph is not None
+    assert seen == [(False, True), (True, False)]
+    assert gc.isenabled()

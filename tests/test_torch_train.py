@@ -348,7 +348,7 @@ def test_checkpoints_keep_three_and_lr_resumes(data_dir, tmp_path):
                                                        "metrics.jsonl"))]
     assert [r["step"] for r in rows] == [3, 6, 9, 10]
     assert all(set(r) == {"step", "steps_per_sec", "loss", "loss_field",
-                          "loss_jac"} for r in rows)
+                          "loss_jac", "host_s"} for r in rows)
 
 
 def test_steps_per_call_rounds_up_like_jax(data_dir, tmp_path):
