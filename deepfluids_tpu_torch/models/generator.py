@@ -24,10 +24,14 @@ Submodules and parameters carry the Flax names (``fc_in``,
 ``inj_{stage}``) so :mod:`.weights` maps one onto the other by name.  Dtypes
 follow Flax's ``nn.Dense/nn.Conv(dtype=...)``: parameters stay float32 and
 each layer casts its input, kernel and bias to ``compute_dtype``.  Inside,
-activations are NCHW (NCDHW in 3D); ``fc_in``'s output is viewed
-channels-last ``(B, [D0,] H0, W0, F)`` first, as Flax reshapes it, so the
-weights need no row permutation.  Stride-1 ``'SAME'`` convolution with a
-kernel of 3 is ``padding=1``.
+activations are indexed NCHW (NCDHW in 3D) and lie channels-last in memory,
+as do the conv weights: cuDNN's tensor-core convs read and write NHWC, so
+an NCHW map would be transposed around every conv, forward and backward.
+``fc_in``'s output is viewed ``(B, [D0,] H0, W0, F)``, as Flax reshapes it
+(so the weights need no row permutation), and permuted, which is already
+channels-last; the upsample keeps the layout, and ``conv_out``'s output
+permuted back to ``[B, *spatial, C]`` is contiguous.  Stride-1 ``'SAME'``
+convolution with a kernel of 3 is ``padding=1``.
 """
 
 from __future__ import annotations
@@ -279,10 +283,21 @@ class MultiResParamGrid(nn.Module):
 
 def upscale_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Nearest-neighbour upsampling of an NCHW / NCDHW tensor: every cell
-    repeated ``factor`` times along each spatial axis."""
-    for dim in range(2, x.dim()):
-        x = x.repeat_interleave(factor, dim=dim)
-    return x
+    repeated ``factor`` times along each spatial axis, in the input's
+    memory layout (channels-last or contiguous).
+
+    One copy of a broadcast view, its axes in memory order: each spatial
+    axis ``n`` is viewed ``(n, 1)`` and expanded to ``(n, factor)``.  The
+    backward is a sum over the ``factor`` copies."""
+    last = layers.is_channels_last(x)
+    y = x.movedim(1, -1) if last else x
+    lead = y.shape[:1] if last else y.shape[:2]
+    spatial = x.shape[2:]
+    tail = y.shape[len(lead) + len(spatial):]
+    y = y.reshape(lead + sum(((n, 1) for n in spatial), ()) + tail).expand(
+        lead + sum(((n, factor) for n in spatial), ()) + tail)
+    y = y.reshape(lead + tuple(n * factor for n in spatial) + tail)
+    return y.movedim(-1, 1) if last else y
 
 
 class GeneratorBE(nn.Module):
@@ -375,6 +390,14 @@ class GeneratorBE(nn.Module):
                 self.add_module(f"spectral_{stage}", SpectralResidual(
                     spectral_modes, res, filters))
         self.conv_out = conv(filters, self.output_shape[-1], 3, padding=1)
+        # The conv weights channels-last, as the maps: ``.to``, ``copy_``
+        # and ``load_state_dict`` keep a parameter's layout, and the
+        # gradients and Adam's moments take it.
+        fmt = layers.memory_format(nd + 2)
+        for m in self.modules():
+            if isinstance(m, conv):
+                m.weight = nn.Parameter(
+                    m.weight.detach().contiguous(memory_format=fmt))
         self.row_shard: Shard | None = None
 
     def shard_rows(self, shard: Shard | None) -> None:

@@ -2,8 +2,11 @@
 maps (``--spatial_shard``) and over channel-sharded weights
 (``--num_model_shards``), and the dense layer that reads a row-sharded map.
 
-Feature maps are NC(D)HW and their sharded axis is dim 2 (H in 2D, D in
-3D), the axis 1 of the channels-last fields.  A map is sharded when that
+Feature maps are indexed NC(D)HW and their sharded axis is dim 2 (H in 2D,
+D in 3D), the axis 1 of the channels-last fields.  In memory the
+generator's maps are channels-last (:func:`memory_format`), the layout of
+cuDNN's tensor-core convs; a sharded map's halo and gathers make it
+contiguous NC(D)HW, which the convs also take.  A map is sharded when that
 extent divides by the group size (:func:`sharded`), otherwise replicated,
 as the reference's ``spatial_constraint`` decides; the coarse maps of a
 deep network are replicated, and a replicated map becomes sharded by
@@ -34,6 +37,21 @@ from deepfluids_tpu_torch.parallel.halo import row_halo
 
 ROW_DIM = 2
 
+# ``conv`` calls by the memory layout of their input: plain integers,
+# counted where the Python runs (a captured CUDA graph counts once, at its
+# capture), so a test can show the conv stack stays channels-last.
+layout_counts: dict[str, int] = {"channels_last": 0, "other": 0}
+
+
+def memory_format(ndim: int) -> torch.memory_format:
+    """The channels-last format of a map (or conv weight) of ``ndim``
+    dims: NHWC for 4, NDHWC for 5."""
+    return torch.channels_last if ndim == 4 else torch.channels_last_3d
+
+
+def is_channels_last(x: torch.Tensor) -> bool:
+    return x.is_contiguous(memory_format=memory_format(x.dim()))
+
 
 def sharded(extent: int, shard: Shard | None) -> bool:
     """Whether a map of ``extent`` rows is sharded over ``shard``."""
@@ -55,12 +73,14 @@ def conv(x: torch.Tensor, layer: torch.nn.Module, dtype: torch.dtype,
     ``row_shard``: ``x`` holds the rank's rows; a stride-1 conv of padding
     1 reads one halo row on each side (zeros at the global edges) and pads
     the other axes only.  A layer with ``tp_shard`` computes its output
-    channels and gathers the rest.
+    channels and gathers the rest.  Each call is counted in
+    :data:`layout_counts` by its input's layout.
     """
     if row_shard is not None and row_shard.active:
         x = row_halo(x, row_shard, ROW_DIM)
         nd = x.dim() - 2
         padding = (0,) + (1,) * (nd - 1)
+    layout_counts["channels_last" if is_channels_last(x) else "other"] += 1
     w = layer.weight.to(dtype)
     b = layer.bias.to(dtype) if bias and layer.bias is not None else None
     tp = getattr(layer, "tp_shard", None)

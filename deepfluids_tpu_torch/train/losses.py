@@ -141,7 +141,8 @@ def apply_curl(out: torch.Tensor) -> torch.Tensor:
     if out.dim() == 4:
         return cuda_fd.curl2d_p(out)
     if out.dim() == 5:
-        # The generator's 3-channel output is a permuted view.
+        # The one-card generator's output is contiguous; a channel-sharded
+        # conv_out's is a permuted view of its gathered NCDHW map.
         return cuda_fd.curl3d_p(out.contiguous())
     raise ValueError(f"unsupported potential shape {tuple(out.shape)}")
 

@@ -109,17 +109,20 @@ def load_optimizer_state_(opt: torch.optim.Adam, sd: dict) -> None:
     """``opt.load_state_dict(sd)`` that keeps ``opt``'s own rate tensor and
     ``capturable`` flag (``load_state_dict`` takes the saved groups'), with
     a capturable optimizer's ``step`` counts moved to their parameters'
-    device, as float32.  The state's tensors are new: a CUDA graph that
-    captured the old ones must be captured again."""
+    device, as float32, and each moment laid out in memory as its
+    parameter is (a checkpoint may hold another layout), which keeps the
+    update on the foreach path.  The state's tensors are new: a CUDA graph
+    that captured the old ones must be captured again."""
     own = [(g["lr"], g["capturable"]) for g in opt.param_groups]
     opt.load_state_dict(sd)
     for group, (lr, capturable) in zip(opt.param_groups, own):
         group["lr"], group["capturable"] = lr, capturable
-        if not capturable:
-            continue
         for p in group["params"]:
-            st = opt.state.get(p)
-            if st and "step" in st:
+            st = opt.state.get(p, {})
+            for k, v in st.items():
+                if v.shape == p.shape and v.stride() != p.stride():
+                    st[k] = torch.empty_like(p, dtype=v.dtype).copy_(v)
+            if capturable and "step" in st:
                 st["step"] = st["step"].to(p.device, torch.float32)
 
 

@@ -965,3 +965,98 @@ def test_no_garbage_collection_inside_a_capture(cuda_device, tmp_path,
     assert t._chunks.graph is not None
     assert seen == [(False, True), (True, False)]
     assert gc.isenabled()
+
+
+# --- the conv stack's memory layout ------------------------------------------
+
+LAYOUT_TRANSPOSE = ("nchwToNhwc", "nhwcToNchw")
+# The transposes left in a step: cuDNN's engines for the 2D conv_out, whose
+# one output channel makes [B, 1, H, W] the same bytes in either layout,
+# convert that map in the forward and its gradient twice in the backward.
+# The 3D conv_out (three channels) takes NDHWC engines.
+ONE_CHANNEL_TRANSPOSES = {2: 3, 3: 0}
+
+
+def _transposes(names: list[str]) -> int:
+    return sum(any(t in n for t in LAYOUT_TRANSPOSE) for n in names)
+
+
+def _field_set(tmp_path, name: str, grid: tuple, frames: int) -> str:
+    """A one-scene velocity set of ``frames`` random fields of ``grid``
+    with (src_x_pos, src_radius, frame) params; its data dir."""
+    ds = tmp_path / "data" / name
+    save_manifest(Manifest(
+        param_names=["src_x_pos", "src_radius", "frame"],
+        param_ranges=[[0.2, 0.8], [0.04, 0.12], [0.0, frames - 1.0]],
+        num_scenes=1, num_frames=frames, resolution=list(grid),
+        num_channels=len(grid), v_range=[-1.0, 1.0],
+        data_type="velocity"), str(ds))
+    os.makedirs(ds / "v")
+    rng = np.random.default_rng(len(grid))
+    for t in range(frames):
+        np.savez(ds / "v" / f"0_0_{t}.npz",
+                 x=rng.standard_normal(grid + (len(grid),)).astype(
+                     np.float32),
+                 y=np.array([0.5, 0.08, t], np.float32))
+    return str(tmp_path / "data")
+
+
+def _kernel_rows(fn, tmp_path, tag: str) -> list[str]:
+    """The names of the kernels ``fn()`` runs, from a profiler's trace."""
+    import json
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = str(tmp_path / f"{tag}.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(128, 96), (32, 64, 112)],
+                         ids=["2d", "3d"])
+def test_conv_stack_runs_without_layout_transposes(cuda_device, tmp_path,
+                                                   grid):
+    # The flagship step (bf16, batch 8, the device cache) as a captured
+    # graph, profiled over one train() call (the eager warm-up step, the
+    # capture, two replays): its convs count channels-last, once in the
+    # warm-up and once at the capture; no 128-channel map is transposed;
+    # the replays stay bit-equal to the body run eagerly.
+    from deepfluids_tpu_torch.parallel import layers
+
+    cfg = Config(data_dir=_field_set(tmp_path, "flag", grid, 8),
+                 dataset="flag", num_worker=1, log_dir=str(tmp_path),
+                 device_data_cache=True)
+    g, e = _graph_pair(cfg, cuda_device, 1)
+    convs = sum(isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d))
+                for m in g.model.modules())
+    layers.layout_counts.update(channels_last=0, other=0)
+    names = _kernel_rows(lambda: g.train(num_steps=3), tmp_path, "step")
+    assert g._chunks.graph is not None and g._chunks.replays == 2
+    assert layers.layout_counts == {"channels_last": 2 * convs, "other": 0}
+    assert any("fprop" in n or "conv" in n.lower() for n in names)
+    assert _transposes(names) == 3 * ONE_CHANNEL_TRANSPOSES[len(grid)]
+    e.train(num_steps=3)
+    _same_state(g, e)
+
+
+@pytest.mark.cuda
+def test_batch_512_forward_runs_without_layout_transposes(cuda_device,
+                                                          tmp_path):
+    # The sweep's forward: the flagship 2D generator in bf16 at batch 512.
+    from deepfluids_tpu_torch.parallel import layers
+
+    model = GeneratorBE((128, 96, 1), num_param=3,
+                        compute_dtype=torch.bfloat16).to(cuda_device)
+    z = torch.rand((512, 3), device=cuda_device) * 2 - 1
+    with torch.no_grad():
+        model(z)                                 # cuDNN's first choices
+        layers.layout_counts.update(channels_last=0, other=0)
+        names = _kernel_rows(lambda: model(z), tmp_path, "forward")
+    assert layers.layout_counts == {"channels_last": 21, "other": 0}
+    assert _transposes(names) == 1          # conv_out's output, as above

@@ -272,6 +272,38 @@ def test_resume_from_a_checkpoint_of_the_earlier_format(data_dir, tmp_path):
     _assert_same_state(t, want)
 
 
+def test_resume_from_a_checkpoint_of_contiguous_conv_weights(data_dir,
+                                                             tmp_path):
+    # A checkpoint whose conv weights and Adam moments are contiguous NCHW
+    # (the layout before the generator kept them channels-last) resumes
+    # with the same numbers, each moment laid out as its parameter, and
+    # trains on as the uninterrupted run.
+    from deepfluids_tpu_torch.parallel import layers
+
+    kw = dict(device_data_cache=True, steps_per_call=2)
+    want = _trainer(data_dir, str(tmp_path), graph.EAGER, **kw)
+    want.train(num_steps=12)
+    old = _trainer(data_dir, str(tmp_path), graph.EAGER, **kw)
+    old.train(num_steps=6)
+    params = {k: v.contiguous() for k, v in old.model.state_dict().items()}
+    sd = portable_optimizer_state(old.opt.state_dict())
+    sd["state"] = {i: {k: v.contiguous() for k, v in st.items()}
+                   for i, st in sd["state"].items()}
+    assert any(not layers.is_channels_last(st["exp_avg"])
+               for st in sd["state"].values() if st["exp_avg"].dim() >= 4)
+    path = os.path.join(old.ckpt_dir, "6", CKPT_FILE)
+    torch.save({"params": params, "opt_state": sd, "step": 6}, path)
+    t = Trainer(old.c, run_dir=old.run_dir, device="cpu", save_cfg=False)
+    t.step_path = graph.CHUNK
+    assert t.restore_checkpoint() == 6
+    _assert_same_state(t, old)
+    for p in t.model.parameters():
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert t.opt.state[p][k].stride() == p.stride()
+    t.train(num_steps=6)
+    _assert_same_state(t, want)
+
+
 def test_portable_optimizer_state(data_dir, tmp_path):
     # A plain Adam's state_dict is already in the checkpoint's form ...
     t = _trainer(data_dir, str(tmp_path), graph.EAGER)
