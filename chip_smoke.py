@@ -103,7 +103,8 @@ exits non-zero:
      root's ``bench.py`` keys and metric, and both device rates at least
      0.8 of phase 5's batch-512 serving rate;
   8. ``sweep_on_device`` over the full 2D grid (21 000 fields, 2 GB) at
-     batch 512, a batch against ``sweep_generator``, and its fields/s;
+     batch 512 through its ring of pinned batch slots, a batch against
+     ``sweep_generator``, and its fields/s;
   9. one forward of config #5's generator with every knob (random gains
      and bases, f32, curl applied) on the card against the CPU;
  10. the datagen, through the scene functions at each configuration's full
@@ -2328,12 +2329,13 @@ def phase_sweep_on_device(device, serving: dict, timing: dict, card: str,
                           root: str) -> dict:
     """``sweep_on_device`` over the full 2D grid (21 x 5 x 200 = 21 000
     fields, 2.06 GB in f32) at batch 512 with the 2D serving run's flagship
-    weights, timed twice; a batch of its second segment against
+    weights, timed twice; a batch copied back through its ring against
     ``sweep_generator`` on the same slice (deterministic cuDNN, so both
     run the same convolutions)."""
     import torch
 
     from deepfluids_tpu_torch.data import load_manifest
+    from deepfluids_tpu_torch.infer import sweep
     from deepfluids_tpu_torch.infer.sweep import (
         param_grid,
         sweep_generator,
@@ -2360,41 +2362,42 @@ def phase_sweep_on_device(device, serving: dict, timing: dict, card: str,
     for _ in range(2):
         out = None            # the first result's 2 GB go before the second
         cuda_fd.reset_launch_counts()
+        before = dict(sweep.overlap_counts)
         t0 = time.perf_counter()
         out = sweep_on_device(apply_fn, manifest, raw, batch_size=bs,
                               device=device)
         secs.append(time.perf_counter() - t0)
         launches = dict(cuda_fd.launch_counts)
+        overlap = {k: v - before[k] for k, v in sweep.overlap_counts.items()}
     n = len(raw)
-    # A whole batch of the second of the two 1 GiB segments.
+    # A whole batch copied back through the ring.
     lo = bs * max(0, min(25, n // bs - 1))
     ref = np.concatenate(list(sweep_generator(
         apply_fn, manifest, raw[lo:lo + bs], batch_size=bs, device=device)))
     torch.backends.cudnn.deterministic = False
-    # sweep_on_device's segments: as many batches as fit in 1 GiB, the
-    # last segment padded to the same shape; the curl once a batch.
-    per_seg = min(max(1, (1 << 30) // (4 * math.prod(manifest.field_shape)
-                                       * bs)), -(-n // bs))
-    batches = -(-n // (per_seg * bs)) * per_seg
+    # The grid in padded batches, the curl once a batch.
+    batches = -(-n // bs)
     if (out.shape != (n,) + manifest.field_shape or out.dtype != np.float32
             or not np.isfinite(out).all()):
         raise AssertionError(f"sweep_on_device gave {out.shape} {out.dtype}")
     l2 = normalized_l2(out[lo:lo + bs], ref)
     if not (l2 < TOL_PARITY and launches == expected_launches(
-            {"curl2d_fused": batches})):
+            {"curl2d_fused": batches}) and sum(overlap.values()) == batches):
         raise AssertionError(f"sweep_on_device vs sweep_generator L2 {l2}, "
-                             f"launches {launches}, want {batches} curls")
+                             f"launches {launches}, want {batches} curls; "
+                             f"ring copies {overlap}")
     rate = n / min(secs)
     device_rate = timing[path.name]["fields_per_s"]
     print(f"phase 8 sweep_on_device 2D: ok  the full {path.serve_counts} x "
           f"{path.num_frames} grid, {n} fields of 128x96x2 ({out.nbytes / 1e9:.2f} "
-          f"GB f32) at batch {bs}, segments of <= 1 GiB on the card copied "
-          f"once each into a pinned host buffer: {secs[0]:.3f} s / "
+          f"GB f32) at batch {bs}, each batch copied back through a ring "
+          f"of {sweep.RING_SLOTS} pinned batch slots into the output while "
+          f"the card computes the next: {secs[0]:.3f} s / "
           f"{secs[1]:.3f} s = {rate:.1f} fields/s (phase 5's device rate of "
           f"generator + curl at batch 512: {device_rate:.1f} fields/s; "
           f"[{card}]); curl2d_fused {launches['curl2d_fused']} launches = "
-          f"{batches} batches of {-(-batches // per_seg)} segments; rows "
-          f"{lo}:{lo + bs} "
+          f"{batches} batches; ring copies {overlap['overlapped']} "
+          f"overlapped, {overlap['exposed']} exposed; rows {lo}:{lo + bs} "
           f"vs sweep_generator L2 {l2:.2e} (tol {TOL_PARITY})", flush=True)
     return {"fields_per_s": rate, "secs": secs}
 

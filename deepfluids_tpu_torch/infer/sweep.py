@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import io
+import math
 import os
 import zipfile
 from collections import deque
@@ -84,6 +85,17 @@ def sweep_generator(
         yield manifest.denormalize_field(out) if denormalize else out
 
 
+# Page-locked batch slots that ``sweep_on_device`` copies the fields back
+# through: while the host copies one slot into the output array, the card
+# computes the batches queued behind it.
+RING_SLOTS = 3
+
+# ``sweep_on_device``'s copies out of a ring slot, by whether the card still
+# had queued work when the copy began (``overlapped``) or none
+# (``exposed``); plain integers, as ``ops.cuda_fd.launch_counts``.
+overlap_counts: dict[str, int] = {"overlapped": 0, "exposed": 0}
+
+
 def sweep_on_device(
     apply_fn: Callable[[torch.Tensor], torch.Tensor],
     manifest: Manifest,
@@ -95,44 +107,75 @@ def sweep_on_device(
     """The whole sweep on the device, returned once: fields ``[N, *res,
     C]`` in raw units (float32).
 
-    The grid runs in segments of the same shape: each is a preallocated
-    device buffer of at most ``max_out_bytes`` (at least one batch), filled
-    batch by batch in padded batches of ``batch_size``, scaled to raw units
-    there and copied back in one copy into a pinned host buffer (pageable
-    memory on a CPU device).  The full 2D grid (21 000 fields, 2.06 GB)
-    takes two segments of the default 1 GiB at batch 512; the full 3D grid
-    (3 750 fields, 10.3 GB) ten at batch 32.  Each segment's copy from the
-    pinned buffer into the output is the span ``sweep.host_copy``
-    (:mod:`..spans`).
+    The grid runs in padded batches of ``batch_size``, each scaled to raw
+    units on the device.  A grid whose fields fit in ``max_out_bytes`` is
+    copied batch by batch straight into one pinned array (pageable memory
+    on a CPU device), which is returned.  A larger one (the full 2D grid, 21 000 fields, 2.06 GB at batch 512; the 3D
+    grid, 10.3 GB) is copied back through a ring of ``RING_SLOTS`` pinned
+    batch slots into a pageable array: the host copies batch ``j`` out of
+    its slot, the span ``sweep.host_copy`` (:mod:`..spans`), while the card
+    computes batches ``j + 1 .. j + RING_SLOTS - 1``, and counts each such
+    copy in :data:`overlap_counts`.
     """
     device = torch.device(device)
+    cuda = device.type == "cuda"
     n = raw_params.shape[0]
     p_norm = np.asarray(manifest.normalize_params(raw_params), np.float32)
-    shape = tuple(manifest.field_shape)
-    field_bytes = 4 * int(np.prod(shape))
-    seg_chunks = max(1, int(max_out_bytes // (field_bytes * batch_size)))
-    per_seg = min(seg_chunks * batch_size, -(-n // batch_size) * batch_size)
-    pad = (-n) % per_seg
+    num_batches = -(-n // batch_size)
+    pad = num_batches * batch_size - n
     if pad:
         p_norm = np.concatenate([p_norm, np.repeat(p_norm[-1:], pad, 0)])
-    segs = torch.from_numpy(p_norm).view(-1, per_seg, p_norm.shape[-1])
-    pinned = device.type == "cuda"
-    host = torch.empty((per_seg,) + shape, dtype=torch.float32,
-                       pin_memory=pinned)
-    out = (host.numpy() if len(segs) == 1
-           else np.empty((len(segs) * per_seg,) + shape, np.float32))
+    shape = tuple(manifest.field_shape)
+    whole = n * 4 * math.prod(shape) <= max_out_bytes
+
+    def rows(j: int) -> slice:
+        return slice(j * batch_size, min(n, (j + 1) * batch_size))
+
     with torch.inference_mode():
-        buf = torch.empty((per_seg,) + shape, dtype=torch.float32,
-                          device=device)
-        for k, seg in enumerate(segs):
-            seg = seg.to(device)
-            for i in range(0, per_seg, batch_size):
-                buf[i:i + batch_size] = apply_fn(seg[i:i + batch_size])
-            host.copy_(buf.mul_(manifest.v_scale))   # raw units
-            if len(segs) > 1:
-                with spans.span("sweep.host_copy"):
-                    out[k * per_seg:(k + 1) * per_seg] = host.numpy()
-    return out[:n]
+        params = torch.from_numpy(p_norm).to(device).view(
+            num_batches, batch_size, -1)
+
+        def field(j: int) -> torch.Tensor:        # raw units, float32
+            return apply_fn(params[j]).to(torch.float32, copy=True).mul_(
+                manifest.v_scale)
+
+        if whole:
+            out = torch.empty((n,) + shape, dtype=torch.float32,
+                              pin_memory=cuda)
+            for j in range(num_batches):
+                r = rows(j)
+                out[r].copy_(field(j)[:r.stop - r.start], non_blocking=True)
+            if cuda:
+                torch.cuda.current_stream(device).synchronize()
+            return out.numpy()
+
+        slots = min(RING_SLOTS, num_batches)
+        ring = [torch.empty((batch_size,) + shape, dtype=torch.float32,
+                            pin_memory=cuda) for _ in range(slots)]
+        done = [torch.cuda.Event() for _ in range(slots)] if cuda else None
+        out = np.empty((n,) + shape, np.float32)
+
+        def copy_out(j: int, newest: int) -> None:
+            """Batch ``j`` from its slot into ``out`` once the card has
+            copied it there; ``newest`` is the last batch enqueued."""
+            s, r = j % slots, rows(j)
+            busy = False
+            if cuda:
+                done[s].synchronize()
+                busy = not done[newest % slots].query()
+            overlap_counts["overlapped" if busy else "exposed"] += 1
+            with spans.span("sweep.host_copy"):
+                out[r] = ring[s].numpy()[:r.stop - r.start]
+
+        for j in range(num_batches):
+            if j >= slots:                     # slot j % slots holds j - slots
+                copy_out(j - slots, j - 1)
+            ring[j % slots].copy_(field(j), non_blocking=True)
+            if cuda:
+                done[j % slots].record()
+        for j in range(num_batches - slots, num_batches):
+            copy_out(j, num_batches - 1)
+    return out
 
 
 def _write_npz(path: str, **arrays) -> None:

@@ -696,6 +696,60 @@ def test_sweep_on_device_pins_its_host_buffer(cuda_device):
     np.testing.assert_allclose(seg, got, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.cuda
+def test_sweep_ring_copies_run_under_the_card(cuda_device, tmp_path):
+    # A card held ~5 ms a batch by torch.cuda._sleep, each batch its own
+    # params: more than 2 x RING_SLOTS batches through the ring give
+    # sweep_generator's fields (no slot is overwritten before its copy);
+    # under the profiler a sweep.host_copy span lies over a kernel row;
+    # every copy but the drain's last ones starts with work on the card.
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepfluids_tpu_torch.infer import sweep
+
+    m = Manifest(param_names=["pos", "size", "frame"],
+                 param_ranges=[[0.2, 0.8], [0.04, 0.12], [0.0, 3.0]],
+                 num_scenes=18, num_frames=8, resolution=[128, 96],
+                 num_channels=2, v_range=[-2.0, 2.0])
+    w = torch.randn(3, 128 * 96 * 2, generator=torch.Generator().manual_seed(
+        24)).to(cuda_device)
+
+    def apply_fn(p):
+        torch.cuda._sleep(10_000_000)
+        return (p @ w).view(-1, 128, 96, 2)
+
+    bs, batches = 16, 2 * sweep.RING_SLOTS + 3
+    raw = sweep.param_grid(m, (6, 3))[:bs * batches - 5]   # partial last
+    direct = sweep.sweep_on_device(apply_fn, m, raw, batch_size=bs,
+                                   device=cuda_device)
+    before = dict(sweep.overlap_counts)
+    path = str(tmp_path / "t.json")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = sweep.sweep_on_device(apply_fn, m, raw, batch_size=bs,
+                                    max_out_bytes=1, device=cuda_device)
+    prof.export_chrome_trace(path)
+    counts = {k: v - before[k] for k, v in sweep.overlap_counts.items()}
+    assert not torch.from_numpy(got).is_pinned()
+    np.testing.assert_array_equal(got, direct)
+    want = np.concatenate(list(sweep.sweep_generator(
+        apply_fn, m, raw, bs, device=cuda_device)))
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+    assert sum(counts.values()) == batches
+    assert counts["overlapped"] >= batches - sweep.RING_SLOTS
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    copies = [e for e in events if e.get("cat") == "user_annotation"
+              and e["name"] == "sweep.host_copy"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert len(copies) == batches
+    assert any(k["ts"] < c["ts"] + c["dur"] and c["ts"] < k["ts"] + k["dur"]
+               for c in copies for k in kernels)
+
+
 # --- the datagen on the card -------------------------------------------------
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """The port's host spans (``deepfluids_tpu_torch.spans``): totals, counts
 and self time with the profiler off; nested ``user_annotation`` rows under
 a CPU ``torch.profiler``; and the spans of the trainer's chunked
-path, of its ``metrics.jsonl`` and of ``sweep_on_device``'s segments."""
+path, of its ``metrics.jsonl`` and of ``sweep_on_device``'s ring copies."""
 
 from __future__ import annotations
 
@@ -181,16 +181,18 @@ def test_sweep_segments_are_host_copy_spans(tmp_path):
     def apply_fn(p):
         return (p @ w).view(-1, *GRID, 2)
 
-    raw = param_grid(m, (2, 1))                         # 8 fields
+    raw = param_grid(m, (3, 1))                         # 12 fields
     one = sweep_on_device(apply_fn, m, raw, batch_size=4, device="cpu")
     path = str(tmp_path / "t.json")
+    # 3 batches over a cap of 2: each batch is copied out of the ring, one
+    # span a batch
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         two = sweep_on_device(apply_fn, m, raw, batch_size=4,
-                              max_out_bytes=4 * 16 * 12 * 2 * 4,
+                              max_out_bytes=2 * 4 * 16 * 12 * 2 * 4,
                               device="cpu")
     prof.export_chrome_trace(path)
     np.testing.assert_array_equal(two, one)
     rows = _annotations(path, {"sweep.host_copy"})
-    assert len(rows) == 2
-    assert rows[0]["ts"] + rows[0]["dur"] <= rows[1]["ts"]
-    assert spans.take()["sweep.host_copy"][0] == 2
+    assert len(rows) == 3
+    assert all(a["ts"] + a["dur"] <= b["ts"] for a, b in zip(rows, rows[1:]))
+    assert spans.take()["sweep.host_copy"][0] == 3

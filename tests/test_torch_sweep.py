@@ -2,8 +2,8 @@
 every knob of ``run_test_sweep`` (``counts=None``, ``save_npz``,
 ``gif_scenes``, ``write_workers``, ``save_png_every``) writes the files
 JAX writes, ``sweep_generator``'s ``denormalize``, and ``sweep_on_device``
-against the port's ``sweep_generator`` (f32 on the CPU: atol 1e-6), with
-and without segments, and against JAX's ``sweep_on_device`` on the same
+against the port's ``sweep_generator`` (f32 on the CPU: atol 1e-6),
+directly and through its ring of batch slots, and against JAX's ``sweep_on_device`` on the same
 generator weights (normalized L2 < 1e-3, the repo's parity gate).
 """
 
@@ -123,17 +123,29 @@ def test_sweep_on_device_matches_sweep_generator(kind, counts, batch):
     np.testing.assert_allclose(dev, host, atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("max_out_bytes", [2 * 4 * 16 * 12 * 2 * 4, 1])
-def test_sweep_on_device_segments_match_one(max_out_bytes):
-    # 2 batches a segment, and a cap below one batch (a segment of one
-    # batch): the segments' fields equal the unsegmented sweep's.
-    m, _, _, tfn = _linear("velocity", seed=3)
-    raw = tsweep.param_grid(m, (3, 2))                      # 24 fields
-    seg = tsweep.sweep_on_device(tfn, m, raw, batch_size=4,
-                                 max_out_bytes=max_out_bytes, device="cpu")
+R = tsweep.RING_SLOTS
+
+
+@pytest.mark.parametrize("kind", ["velocity", "3d"])
+@pytest.mark.parametrize("batches,extra", [
+    (1, 0), (1, -1), (R, 0), (R + 1, 0), (2 * R + 1, 1)],
+    ids=["one", "one_partial", "ring", "ring_plus_one", "over_2r_partial"])
+def test_sweep_on_device_segments_match_one(kind, batches, extra):
+    # A cap below one batch sends every batch through the ring of pinned
+    # slots: one batch, exactly RING_SLOTS, one more, and more than twice
+    # RING_SLOTS with a partial last batch.  The fields equal the direct
+    # return's bit for bit, and every batch is one copy out of the ring.
+    m, _, _, tfn = _linear(kind, seed=3)
+    n = 4 * batches + extra
+    raw = tsweep.param_grid(m, (12, 2))[:n]
+    before = sum(tsweep.overlap_counts.values())
+    ring = tsweep.sweep_on_device(tfn, m, raw, batch_size=4,
+                                  max_out_bytes=1, device="cpu")
+    assert sum(tsweep.overlap_counts.values()) == before + -(-n // 4)
     one = tsweep.sweep_on_device(tfn, m, raw, batch_size=4, device="cpu")
-    assert seg.shape == one.shape == (24, 16, 12, 2)
-    np.testing.assert_array_equal(seg, one)
+    assert sum(tsweep.overlap_counts.values()) == before + -(-n // 4)
+    assert ring.shape == one.shape == (n,) + m.field_shape
+    np.testing.assert_array_equal(ring, one)
 
 
 def test_sweep_on_device_matches_jax_on_a_generator():
