@@ -81,12 +81,13 @@ exits non-zero:
      integrator step and a 400-frame rollout, the liquid step (batch 8 and
      64) and serving (batch 512), the knob step against the plain 2D step
      (batch 8 and 64) with the kernels each launches, the x-mirror's cost,
-     and profile lines by kernel; and the eager loop against the CUDA
-     graph at --steps_per_call 1, 8 and 32 from the device cache (2D,
+     and profile lines by kernel; and the uncaptured chunk body at
+     --steps_per_call 1 against the CUDA graph at --steps_per_call 1, 8
+     and 32 from the device cache (2D,
      liquid, knobs at batch 8 and 64, 3D and the AE at 8): wall, host and
      device ms a step, idle share, steps/s, the capture's seconds, the
      graph pool's and the peak's MB;
- 14. right after phase 7, the CUDA graph against its body run eagerly
+ 14. right after phase 7, the CUDA graph against its body run uncaptured
      from the same seed and batches (2D batch 8 with the x-mirror, 3D
      batch 2, the AE on ``--ae_pred_w`` pair batches; 40 steps at
      --steps_per_call 1 and 8): parameters and Adam's state bit for bit
@@ -2201,10 +2202,12 @@ def profiles(device, serving: dict, timing: dict, train_timing: dict,
         run = train[PATH_2D.name]["grain"]["run"]
         t = Trainer(load_config(run), run_dir=run, device=device,
                     save_cfg=False)
-        batch = t._batch_source(10 ** 6, 0)
+        block = t._chunk_blocks(10 ** 6, 0, 1)
         try:
             def grain_step():
-                t._train_step(*batch(0))
+                b = block(t.step)
+                t._train_step(b["x"][0].to(device, non_blocking=True),
+                              b["y"][0].to(device, non_blocking=True))
 
             # events around the steps: the card's idle gaps count
             profile_line(f"2D grain train step batch 8 bf16 (4 workers) "
@@ -2624,13 +2627,13 @@ def _held(got, want, what: str) -> str:
     if same:
         return "bit-equal"
     if worst > TOL_GRAPH:
-        raise AssertionError(f"{what}: {name} {worst:.3e} from the eager "
-                             f"body's (bar {TOL_GRAPH})")
+        raise AssertionError(f"{what}: {name} {worst:.3e} from the "
+                             f"uncaptured body's (bar {TOL_GRAPH})")
     return f"not bit-equal, worst {name} {worst:.3e} (bar {TOL_GRAPH})"
 
 
 def phase_graph(device, root: str, train: dict, mov: dict) -> None:
-    """Phase 14: the CUDA graph's chunks against the same body run eagerly,
+    """Phase 14: the CUDA graph's chunks against the same body uncaptured,
     at the flagship width from the same seed and batches: 2D "de" batch 8
     with the x-mirror, 3D "de" batch 2 and the AE on pair batches
     (``--ae_pred_w``), each 40 steps at --steps_per_call 1 and 8, the
@@ -2641,7 +2644,6 @@ def phase_graph(device, root: str, train: dict, mov: dict) -> None:
     import torch
 
     from deepfluids_tpu_torch.ops import cuda_fd
-    from deepfluids_tpu_torch.train import graph
     from deepfluids_tpu_torch.train.trainer import Trainer
 
     cases = (
@@ -2659,13 +2661,13 @@ def phase_graph(device, root: str, train: dict, mov: dict) -> None:
         cache = None
         for k in (1, 8):
             pair = []
-            for path in (graph.GRAPH, graph.CHUNK):
+            for path in ("graph", "body"):
                 t = Trainer(dataclasses.replace(
                     cfg, steps_per_call=k, tag=f"{cfg.tag}_{path}{k}"),
                     device=device)
-                if t.step_path != graph.GRAPH:
-                    raise AssertionError(f"{label}: path {t.step_path}")
-                t.step_path = path
+                if not t.capture:
+                    raise AssertionError(f"{label}: not captured")
+                t.capture = path == "graph"
                 if cache is None:
                     cache = t._load_device_cache()
                 t._device_cache = cache
@@ -2705,7 +2707,7 @@ def phase_graph(device, root: str, train: dict, mov: dict) -> None:
     if not same:
         raise AssertionError(f"resumed at {GRAPH_RESUME_AT} under the graph "
                              f"!= {n} uninterrupted steps: {name} {worst:.3e}")
-    print(f"phase 14 CUDA graph: ok  the graph against its body run eagerly "
+    print(f"phase 14 CUDA graph: ok  the graph against its body uncaptured "
           f"({n} steps from one seed, launches exact): {'; '.join(done)}; "
           f"{GRAPH_RESUME_AT} steps, a checkpoint, 8 more, restored at "
           f"{GRAPH_RESUME_AT} (the held graph dropped) and {n - GRAPH_RESUME_AT} "
@@ -2730,17 +2732,18 @@ def kernel_ms(fn, calls: int) -> float:
     return total / 1e3 / calls if total else float("nan")
 
 
-def _steady(t, path: str, k: int, steps: int, profile: bool = False
+def _steady(t, capture: bool, k: int, steps: int, profile: bool = False
             ) -> dict:
-    """The steady state of trainer ``t``'s ``path`` at --steps_per_call
-    ``k`` from the device cache: after a warm-up chunk and the capture,
-    ``steps`` steps (whole chunks) timed end to end (host blocks, copies
-    and replays or eager steps included); the host's time issuing them
+    """The steady state of trainer ``t``'s chunk body, captured or not, at
+    --steps_per_call ``k`` from the device cache: after a warm-up chunk
+    and the capture, ``steps`` steps (whole chunks) timed end to end (host
+    blocks, copies and replays or uncaptured bodies included); the host's
+    time issuing them
     (its waits for a staging buffer included), peak memory and, with
     ``profile``, the kernels' ms a step over one more chunk (profiler)."""
     import torch
 
-    t.step_path = path
+    t.capture = capture
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     run = t._chunk_runner(10 ** 9, t.step, k)
@@ -2756,8 +2759,8 @@ def _steady(t, path: str, k: int, steps: int, profile: bool = False
     wall = (time.perf_counter() - t0) * 1e3 / (chunks * k)
     loss = t._reported(aux)["loss"]
     if not np.isfinite(loss):
-        raise AssertionError(f"{path} K={k}: loss {loss}")
-    g = t._chunks if path == "graph" else None
+        raise AssertionError(f"capture {capture} K={k}: loss {loss}")
+    g = t._chunks if capture else None
     return {"wall_ms": wall, "host_ms": host * 1e3 / (chunks * k),
             "steps_per_s": 1e3 / wall,
             "capture_s": g.capture_s if g else None,
@@ -2769,14 +2772,13 @@ def _steady(t, path: str, k: int, steps: int, profile: bool = False
 
 def phase_graph_timing(device, root: str, train: dict, mov: dict,
                        card: str) -> dict:
-    """Phase 5 (printed only): the eager loop against the CUDA graph at
-    --steps_per_call 1, 8 and 32, from the device cache, flagship bf16:
+    """Phase 5 (printed only): the uncaptured chunk body at K = 1 against
+    the CUDA graph at --steps_per_call 1, 8 and 32, from the device cache, flagship bf16:
     2D, liquid and knobs at batch 8 and 64, 3D and the MOV AE at 8; for
     each the wall and host ms a step, steps/s, the capture's seconds, the
     graph pool's and the peak's MB; the device ms of a step (the
     profiler's kernel rows over one replay at K = 8: every path runs the
     same kernels) and each path's idle share against it."""
-    from deepfluids_tpu_torch.train import graph
     from deepfluids_tpu_torch.train.trainer import Trainer
 
     cases = (("2D", train["2d"]["run"], (8, 64)),
@@ -2796,9 +2798,9 @@ def phase_graph_timing(device, root: str, train: dict, mov: dict,
             t._device_cache = cache
             steps = 16 if b > 8 or label == "3D" else 32
             kd = max(k for k in GRAPH_KS if k <= 8)    # profiled: one replay
-            res = {"eager": _steady(t, graph.EAGER, 1, steps)}
+            res = {"body": _steady(t, False, 1, steps)}
             for k in GRAPH_KS:
-                res[k] = _steady(t, graph.GRAPH, k, max(steps, k),
+                res[k] = _steady(t, True, k, max(steps, k),
                                  profile=k == kd)
             dev = res[kd]["kernel_ms"]
             for r in res.values():
@@ -2815,7 +2817,7 @@ def phase_graph_timing(device, root: str, train: dict, mov: dict,
             print(f"phase 5 graph [{card}]: {label} train step flagship "
                   f"{cfg.compute_dtype} batch {b}, device cache"
                   f"{', x-mirror' if cfg.augment_flip_x else ''}: kernels "
-                  f"{dev:.3f} ms a step; eager {fmt(res['eager'])}; graph "
+                  f"{dev:.3f} ms a step; body {fmt(res['body'])}; graph "
                   f"{graphs}", flush=True)
             del t
     return out
@@ -4046,13 +4048,14 @@ for job in json.load(open(sys.argv[1])):
             if rank == 0:
                 np.savez(job["out"], **grads)
         else:
-            batch = t._batch_source(job["steps"] + 2, 0)
+            t.capture = False
+            run = t._chunk_runner(job["steps"] + 2, 0, 1)
             for _ in range(2):
-                t._train_step(*batch(t.step + 1))
+                run(1)
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             for _ in range(job["steps"]):
-                t._train_step(*batch(t.step + 1))
+                run(1)
             torch.cuda.synchronize(dev)
             out["ms"] = (time.perf_counter() - t0) * 1e3 / job["steps"]
     torch.cuda.synchronize(dev)
@@ -4512,13 +4515,14 @@ def phase_parallel(device, root: str, card: str, train: dict) -> dict:
                       run_dir=timed_jobs["par_time1"], device=device,
                       save_cfg=False)
     plain_t.restore_weights()
-    batch = plain_t._batch_source(PAR_TIMED + 2, 0)
+    plain_t.capture = False
+    run = plain_t._chunk_runner(PAR_TIMED + 2, 0, 1)
     for _ in range(2):
-        plain_t._train_step(*batch(plain_t.step + 1))
+        run(1)
     torch.cuda.synchronize(device)
     t1 = time.perf_counter()
     for _ in range(PAR_TIMED):
-        plain_t._train_step(*batch(plain_t.step + 1))
+        run(1)
     torch.cuda.synchronize(device)
     plain_ms = (time.perf_counter() - t1) * 1e3 / PAR_TIMED
     out, _ = demo.communicate(timeout=600)

@@ -20,6 +20,7 @@ worker batches every W-th record), these do not, so a resume under another
 
 from __future__ import annotations
 
+import gc
 from typing import Iterator
 
 import numpy as np
@@ -142,6 +143,10 @@ def make_grain_loader(
         multiprocessing_context="fork" if worker_count else None,
         # the workers' seeds come from here, not from torch's global RNG
         generator=torch.Generator().manual_seed(seed))
+    # The forked workers must inherit no unreachable cycle: a worker's
+    # collector would free it there, and with it any CUDA tensor it holds
+    # (a finished trainer's graph and staging), which aborts the worker.
+    gc.collect()
     it = iter(loader)
     try:
         yield from it

@@ -79,8 +79,10 @@ def flip_mask(seed: int, step: int, batch: int,
 def flip_mask_block(seed: int, step: int, k: int,
                     batch: int) -> torch.Tensor:
     """``[k, batch]`` bool on the CPU: row ``i`` is :func:`flip_mask` at
-    step ``step + i``, the masks of a chunk of ``k`` updates."""
-    return torch.stack([_draw_mask(seed, step + i, batch) for i in range(k)])
+    step ``step + i``, the masks of a chunk of ``k`` updates (every
+    trainer step's mask comes from here)."""
+    return torch.stack([flip_mask(seed, step + i, batch, "cpu")
+                        for i in range(k)])
 
 
 def flip_x_batch(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,

@@ -1,43 +1,30 @@
-"""The train step as one CUDA graph: K steps a replay.
+"""The train step's one path: chunks of K steps, each captured as one CUDA
+graph where :func:`should_capture` says so.
 
 Counterpart of the JAX trainer's compiled step
-(:mod:`deepfluids_tpu.train.trainer`): ``jax.jit(step,
-donate_argnums=(0,))``, one device program a step, and ``--steps_per_call
-K``'s ``lax.scan`` of K steps, over a gather from the device cache
-(``_get_cached_multi``, fed ``[K, B]`` indices) or over stacked batches
-(``_get_train_multi``).  On a CUDA card :class:`StepGraph` captures one
-chunk of K steps (for each: the batch gathered or taken, the x-mirror, the
-loss through the FD kernels, backward, ``clip_by_global_norm_`` and Adam at
-its step's rate) into one ``torch.cuda.CUDAGraph`` with a memory pool of
-its own, and replays it once a chunk; the last step's losses are its static
-outputs, as JAX returns ``aux[-1]``.  K = 1 is the counterpart of the
-jitted step, K > 1 of the scan.
+(:mod:`deepfluids_tpu.train.trainer`): ``jax.jit`` of one step, and
+``--steps_per_call K``'s ``lax.scan`` of K steps over a gather from the
+device cache (``[K, B]`` indices) or over stacked batches.  Every run takes
+:class:`StepGraph`'s body: K updates (the batch, the x-mirror, the loss,
+backward, clipping and Adam at its step's rate) read from static device
+tensors, which :meth:`StepGraph.fill` sizes from the first host block of
+``[K, ...]`` rows it gets and fills once a chunk, on the card through two
+page-locked staging sets in turns (one is written again only after its
+last copy's event).  What the rows hold is the trainer's business.
 
-A chunk reads only static device tensors, filled from the host once a
-chunk (:meth:`StepGraph.fill`): ``lr`` ``[K]`` (the schedule's table),
-``mask`` ``[K, B]`` (``--augment_flip_x``) and either ``idx`` ``[K, B]``
-(``--device_data_cache``; ``[K, 2B]`` ``[t ; successor]`` pairs under
-``--ae_pred_w``) or the batches ``x`` ``[K, B, *field]`` and ``y`` ``[K,
-B, P]`` (the native stream and grain).  On the card each block is written
-into page-locked staging (two of them, in turns) and copied to the static
-tensors ``non_blocking``; a staging buffer is written again only after
-the event of its last copy has passed.
+On one CUDA card ("de" / "ae") the first chunk of each ``Trainer.train``
+call runs the body eagerly on a side stream (it builds the kernel library,
+plans cuDNN and creates Adam's state); the second is captured into one
+``torch.cuda.CUDAGraph`` with a memory pool of its own, then replayed once
+a chunk, its last step's losses the static outputs (JAX's ``aux[-1]``).
+No extra step is taken, so the trajectory is the uncaptured body's.  An FD
+launch under capture counts in ``cuda_fd.capture_counts``; each replay
+adds those counts to ``cuda_fd.launch_counts``.  A capture or replay that
+fails raises: there is no uncaptured fallback.
 
-The first chunk of each ``Trainer.train`` call runs the same body eagerly
-on a side stream (it builds the kernel library, plans cuDNN and creates
-Adam's state); the second is captured, then replayed; no extra step is
-taken, so the trajectory is the eager body's.  A launch of an FD kernel
-under capture counts in ``cuda_fd.capture_counts``; each replay adds
-those counts to ``cuda_fd.launch_counts``.  A capture or replay that fails
-raises: there is no eager fallback.
-
-The host's part of a chunk is timed by spans (:mod:`..spans`):
-``train.fill`` (with ``train.stage_wait``, the wait on a staging buffer's
-event), ``train.warmup``, ``train.capture`` (its length is ``capture_s``)
-and ``train.replay`` (on the chunked path, the body run eagerly); none is
-opened inside the captured body.
-
-:func:`choose_path` decides where the graph applies.
+Spans (:mod:`..spans`): ``train.fill`` (with ``train.stage_wait``),
+``train.warmup``, ``train.capture`` (its length is ``capture_s``) and
+``train.replay`` (a replay, or an uncaptured body); none inside a capture.
 """
 
 from __future__ import annotations
@@ -48,10 +35,6 @@ import torch
 
 from deepfluids_tpu_torch import spans
 from deepfluids_tpu_torch.ops import cuda_fd
-
-GRAPH = "graph"   # K steps captured once, replayed once a chunk
-CHUNK = "chunk"   # the graph's body run eagerly (comparisons, the CPU)
-EAGER = "eager"   # Trainer._train_step a step
 
 
 def _not_one_card_field(c, device: torch.device, layout) -> str | None:
@@ -70,21 +53,21 @@ def _not_one_card_field(c, device: torch.device, layout) -> str | None:
 
 def device_lr(c, device: torch.device, layout) -> bool:
     """Whether the run's Adam is capturable, with its rate in a device
-    tensor: every one-card "de" / "ae" run on a CUDA card, graph or not
+    tensor: every one-card "de" / "ae" run on a CUDA card, captured or not
     (``--debug_nans``), so both do the same arithmetic."""
     return _not_one_card_field(c, device, layout) is None
 
 
-def choose_path(c, device: torch.device, layout) -> tuple[str, str]:
-    """(``GRAPH`` or ``EAGER``, the reason) for a run of config ``c`` on
-    ``device`` under ``layout``."""
+def should_capture(c, device: torch.device, layout) -> tuple[bool, str]:
+    """(whether a run of config ``c`` on ``device`` under ``layout``
+    captures its chunk body into a CUDA graph, the reason)."""
     why = _not_one_card_field(c, device, layout)
     if why is None and c.debug_nans:
         why = "--debug_nans reads every step's loss and gradients"
     if why is not None:
-        return EAGER, why
-    return GRAPH, (f"one card, arch {c.arch}: --steps_per_call "
-                   f"{max(1, c.steps_per_call)} steps a CUDA graph replay")
+        return False, why
+    return True, (f"one card, arch {c.arch}: --steps_per_call "
+                  f"{max(1, c.steps_per_call)} steps a CUDA graph replay")
 
 
 class StepGraph:
@@ -93,27 +76,10 @@ class StepGraph:
     (``capture``), or run eagerly every chunk."""
 
     def __init__(self, trainer, k: int, capture: bool):
-        t = trainer
-        self.trainer, self.k, self.capture = t, k, capture
-        dev, m = t.device, t.manifest
-        rows = t.c.batch_size * (2 if t.pair_mode else 1)
-        f32 = torch.float32
-        shapes = {"lr": ((k,), f32)}
-        if t._flip is not None:
-            shapes["mask"] = ((k, t.c.batch_size), torch.bool)
-        if t.c.device_data_cache:
-            shapes["idx"] = ((k, rows), torch.int64)
-        else:
-            shapes["x"] = ((k, rows) + m.field_shape, f32)
-            shapes["y"] = ((k, rows, m.num_param), f32)
-        self.static = {n: torch.zeros(s, dtype=d, device=dev)
-                       for n, (s, d) in shapes.items()}
-        if dev.type == "cuda":
-            self._staging = [{n: torch.zeros(s, dtype=d, pin_memory=True)
-                              for n, (s, d) in shapes.items()}
-                             for _ in range(2)]
-        else:
-            self._staging = [self.static]
+        self.trainer, self.k, self.capture = trainer, k, capture
+        self.static: dict[str, torch.Tensor] = {}   # sized by the 1st fill
+        self._staging: list[dict[str, torch.Tensor]] = []
+        self._rates = None                  # the last block's host rates
         self._events: list[torch.cuda.Event | None] = [None, None]
         self._slot = 0
         self._warm = False
@@ -124,10 +90,27 @@ class StepGraph:
         self.pool_bytes = 0                 # reserved by the capture
         self.replays = 0
 
+    def _allocate(self, block: dict) -> None:
+        """The static tensors (and, on the card, two page-locked staging
+        sets) of ``block``'s names, shapes and dtypes."""
+        like = {n: torch.stack([torch.as_tensor(r) for r in rows])
+                if isinstance(rows, (list, tuple)) else torch.as_tensor(rows)
+                for n, rows in block.items()}
+        dev = self.trainer.device
+        self.static = {n: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                       for n, v in like.items()}
+        self._staging = [self.static] if dev.type != "cuda" else [
+            {n: torch.zeros(v.shape, dtype=v.dtype, pin_memory=True)
+             for n, v in like.items()} for _ in range(2)]
+
     def fill(self, block: dict) -> None:
         """The static inputs of the next chunk from host ``block``: per
-        name an array ``[k, ...]`` or a list of ``k`` rows."""
+        name an array ``[k, ...]`` or a list of ``k`` rows, ``"lr"`` the
+        steps' rates."""
         with spans.span("train.fill"):
+            if not self.static:
+                self._allocate(block)
+            self._rates = block["lr"]
             slot = self._slot
             stage = self._staging[slot]
             if self._events[slot] is not None:
@@ -151,15 +134,13 @@ class StepGraph:
 
     def _body(self) -> dict[str, torch.Tensor]:
         """The chunk's ``k`` updates on the static inputs; the last one's
-        losses."""
+        losses.  Each update gets its global index (updates done before
+        it), its row of each static input and its host rate, which only an
+        uncaptured run reads (a captured body does not depend on them)."""
         t, s = self.trainer, self.static
         for i in range(self.k):
-            if "idx" in s:
-                a, b = t._cache_batch(s["idx"][i])
-            else:
-                a, b = s["x"][i], s["y"][i]
-            aux = t._update(a, b, s["mask"][i] if "mask" in s else None,
-                            s["lr"][i])
+            aux = t._block_update(t.step + i, {n: v[i] for n, v in s.items()},
+                                  float(self._rates[i]))
         return aux
 
     def run(self) -> dict[str, torch.Tensor]:

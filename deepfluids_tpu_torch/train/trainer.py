@@ -18,10 +18,10 @@ optimizer and cosine schedule (:mod:`.state`) on the CUDA card (or on
     ``metrics.jsonl`` rows, sample dumps and checkpoints at the JAX
     trainer's steps (each row's ``host_s``: the host seconds of each span
     of :mod:`..spans` since the row before, checkpoints, sample dumps,
-    captures and staging waits among them); on one CUDA card ("de" /
-    "ae") each chunk of ``--steps_per_call`` steps is one replay of a CUDA
-    graph (:mod:`.graph`, the counterpart of JAX's compiled step),
-    elsewhere a loop of eager steps;
+    captures and staging waits among them); every run takes chunks of
+    ``--steps_per_call`` steps (:mod:`.graph`, the counterpart of JAX's
+    compiled step), a CUDA graph replay each on one CUDA card ("de" /
+    "ae"), uncaptured elsewhere;
   * :meth:`generate` ("de"), :meth:`reconstruct` / :meth:`encode` /
     :meth:`decode` ("ae") and :meth:`evaluate`: the serving path.
 
@@ -79,7 +79,6 @@ from deepfluids_tpu_torch.parallel import comm, mesh
 from deepfluids_tpu_torch.train import augment, graph, losses
 from deepfluids_tpu_torch.train.state import (
     clip_by_global_norm_,
-    cosine_lr_schedule,
     cosine_lr_table,
     load_optimizer_state_,
     lr_rows,
@@ -237,19 +236,18 @@ class Trainer:
         self._whole_shapes = {k: torch.empty(v.shape, device="meta")
                               for k, v in self.model.state_dict().items()}
         self._cut = mesh.shard_channels_(self.model, self.layout.model)
-        self.lr_fn = cosine_lr_schedule(config.lr_max, config.lr_min,
-                                        config.max_step)
         self._lr_table = cosine_lr_table(config.lr_max, config.lr_min,
                                          config.max_step)
         # Adam's rate on the device (capturable) where the graph can run
         self._lr = (torch.zeros((), device=self.device)
                     if graph.device_lr(config, self.device, self.layout)
                     else None)
-        # graph.GRAPH / EAGER, or CHUNK (the graph's body without capture)
-        self.step_path, why = graph.choose_path(config, self.device,
-                                                self.layout)
+        # whether train() captures the chunk body (a caller may turn it off)
+        self.capture, why = graph.should_capture(config, self.device,
+                                                 self.layout)
         if config.is_train:
-            log.info("train step path: %s (%s)", self.step_path, why)
+            log.info("train step path: %s (%s)",
+                     "graph" if self.capture else "chunk body", why)
         self._chunks: graph.StepGraph | None = None  # the last train()'s
         self.step = 0      # optimizer updates done; drives the schedule
         self._metrics_path = os.path.join(self.run_dir, "metrics.jsonl")
@@ -476,35 +474,46 @@ class Trainer:
 
     def _train_step(self, a: torch.Tensor,
                     b: torch.Tensor) -> dict[str, torch.Tensor]:
-        """One Adam update at lr(updates done so far); the step's losses as
-        device tensors.  Under ``--augment_flip_x`` a random half of the
-        field batch is mirrored first (the mask a pure function of (seed,
-        updates done)).  The host part of an eager step: its mask and rate,
-        then :meth:`_update`."""
-        mask = None
-        if self._flip is not None:
-            # drawn for the global batch; a rank mirrors its rows of it
-            group = self.layout.batch
-            mask = mesh.local_rows(augment.flip_mask(
-                self.c.seed, self.step, a.shape[0] * group.size, a.device),
-                group)
-        aux = self._update(a, b, mask, self.lr_fn(self.step))
+        """One update on the device tensors ``(a, b)`` (this rank's part of
+        a global batch), uncaptured, at the current step's rate and
+        x-mirror mask (:meth:`_step_rows`); the step's losses as device
+        tensors.  What the card's tests and ``chip_smoke.py`` time alone."""
+        rows = self._step_rows(self.step, 1,
+                               a.shape[0] * self.layout.batch.size)
+        mask = rows["mask"][0] if "mask" in rows else None
+        if mask is not None and a.device.type == "cuda":
+            # from pinned memory: a pageable copy would wait for the stream
+            mask = mask.pin_memory().to(a.device, non_blocking=True)
+        aux = self._update(a, b, mask, float(rows["lr"][0]), self.step)
         self.step += 1
         return aux
 
+    def _block_update(self, step: int, row: dict[str, torch.Tensor],
+                      rate: float) -> dict[str, torch.Tensor]:
+        """Update ``step`` of a chunk (:meth:`graph.StepGraph._body`) from
+        its ``row`` of the static inputs of :meth:`_chunk_blocks`: the
+        cache's rows ``idx`` or the batch ``x``, ``y``, the mask, and the
+        rate, read from the device where Adam is capturable, else the host
+        ``rate`` (no read back from the card)."""
+        a, b = (self._cache_batch(row["idx"]) if "idx" in row
+                else (row["x"], row["y"]))
+        return self._update(a, b, row.get("mask"),
+                            row["lr"] if self._lr is not None else rate, step)
+
     def _update(self, a: torch.Tensor, b: torch.Tensor,
-                mask: torch.Tensor | None,
-                lr: float | torch.Tensor) -> dict[str, torch.Tensor]:
-        """The device body of one step, which a CUDA graph captures: the
-        x-mirror of ``mask``'s frames, the loss, backward, clipping and an
-        Adam update at rate ``lr``; the losses as device tensors.  Leaves
-        ``self.step`` to the caller."""
+                mask: torch.Tensor | None, lr: float | torch.Tensor,
+                step: int) -> dict[str, torch.Tensor]:
+        """The device body of update ``step`` (the updates done before
+        it), which a CUDA graph captures: the x-mirror of ``mask``'s
+        frames, the loss, backward, clipping and an Adam update at rate
+        ``lr``; the losses as device tensors.  Leaves ``self.step`` to the
+        caller."""
         if mask is not None:
             a, b = augment.flip_x_batch(a, b, mask, *self._flip)
         set_lr(self.opt, lr)
-        loss, aux = self._backward(a, b)
+        loss, aux = self._backward(a, b, step)
         if self.c.debug_nans:
-            self._raise_if_not_finite(loss)
+            self._raise_if_not_finite(loss, step)
         if self.c.grad_clip > 0:
             norm = (torch.sqrt(mesh.grad_sq_norm(
                 self.model, self._cut, self.layout.model))
@@ -515,12 +524,13 @@ class Trainer:
         aux["loss"] = loss
         return {k: v.detach() for k, v in aux.items()}
 
-    def _backward(self, a: torch.Tensor, b: torch.Tensor
+    def _backward(self, a: torch.Tensor, b: torch.Tensor, step: int
                   ) -> tuple[torch.Tensor, dict]:
-        """The rank's loss on its batch (rows), backpropagated; the
-        gradients made the whole step's over the layout."""
+        """The rank's loss on its batch (rows) at update ``step``,
+        backpropagated; the gradients made the whole step's over the
+        layout."""
         self.opt.zero_grad(set_to_none=True)
-        loss, aux = self._loss_fn(self.model, a, b, self.step)
+        loss, aux = self._loss_fn(self.model, a, b, step)
         loss.backward()
         mesh.reduce_grads_(list(self.model.parameters()), self.layout)
         return loss, aux
@@ -557,7 +567,7 @@ class Trainer:
         dev = self.device
         a = torch.as_tensor(np.asarray(a)).to(dev)
         b = torch.as_tensor(np.asarray(b)).to(dev)
-        loss, aux = self._backward(a, b)
+        loss, aux = self._backward(a, b, self.step)
         grads = {n: p.grad for n, p in self.model.named_parameters()}
         if self._cut:
             grads = mesh.gather_cut(grads, self._cut, self.layout.model)
@@ -565,9 +575,10 @@ class Trainer:
         return (self._reported({"loss": loss.detach()})["loss"],
                 state_dict_to_flax(grads))
 
-    def _raise_if_not_finite(self, loss: torch.Tensor) -> None:
-        """``--debug_nans``: raise at the first step whose loss or gradients
-        hold a NaN or an infinity, before the update is applied.  One flag a
+    def _raise_if_not_finite(self, loss: torch.Tensor, step: int) -> None:
+        """``--debug_nans``: raise at the first step (``step + 1``, the
+        update after ``step``) whose loss or gradients hold a NaN or an
+        infinity, before the update is applied.  One flag a
         tensor, stacked and read back once: a stream sync every step, which
         is why it stays behind the flag."""
         named = [("loss", loss)] + [
@@ -578,7 +589,7 @@ class Trainer:
         bad = (~finite).nonzero().flatten().tolist()
         if bad:
             raise FloatingPointError(
-                f"--debug_nans: step {self.step + 1}: {named[bad[0]][0]} is "
+                f"--debug_nans: step {step + 1}: {named[bad[0]][0]} is "
                 f"not finite ({len(bad)} of {len(named)} tensors checked "
                 "are not)")
 
@@ -714,10 +725,14 @@ class Trainer:
         return cache_x[idx].float(), cache_y[idx]
 
     def _host_batches(self, num_steps: int, start: int):
-        """The host batches ``(x, y)`` of steps ``start + 1 .. start +
-        num_steps``: ``--input_pipeline grain``'s stream (page-locked
-        tensors on the card) or the native one (numpy)."""
+        """The host batches ``(a, b)`` of steps ``start + 1 .. start +
+        num_steps``: "nn"'s code windows, ``--input_pipeline grain``'s
+        stream (page-locked tensors on the card) or the native one
+        (numpy)."""
         c = self.c
+        if c.arch == "nn":
+            return (self.codes.window_batch(c.batch_size, c.w_num, step=s)
+                    for s in range(start + 1, start + num_steps + 1))
         if c.input_pipeline != "grain":
             return self.bm.batches(num_steps, start_step=start)
         # Every rank reads the one global stream (shard 0 of 1) and keeps
@@ -734,61 +749,37 @@ class Trainer:
             skip_batches=start, pin_memory=self.device.type == "cuda")
         return self._stream
 
-    def _batch_source(self, num_steps: int, start: int):
-        """``batch(step)`` -> the (a, b) tensors of global step ``step`` on
-        the device, for steps ``start + 1 .. start + num_steps`` in
-        order."""
-        c, lay = self.c, self.layout
-        if c.arch == "nn":
-            def batch(step: int) -> tuple[torch.Tensor, torch.Tensor]:
-                z, p = self.local_batch(*self.codes.window_batch(
-                    c.batch_size, c.w_num, step=step))
-                return (torch.from_numpy(z).to(self.device),
-                        torch.from_numpy(p).to(self.device))
-            return batch
-        if c.device_data_cache:
-            def batch(step: int) -> tuple[torch.Tensor, torch.Tensor]:
-                # a rank gathers its rows (spatial: every index, its rows
-                # of each field are the cache's)
-                idx = mesh.local_rows(self._cache_indices(step, 1)[0],
-                                      lay.batch, pair=self.pair_mode)
-                return self._cache_batch(torch.from_numpy(idx).to(
-                    self.device))
-            return batch
-        it = self._host_batches(num_steps, start)
-        if c.input_pipeline == "grain":
-            def batch(step: int) -> tuple[torch.Tensor, torch.Tensor]:
-                x, y = self.local_batch(*next(it))
-                return (x.to(self.device, non_blocking=True),
-                        y.to(self.device, non_blocking=True))
-            return batch
-
-        def batch(step: int) -> tuple[torch.Tensor, torch.Tensor]:
-            x, y = self.local_batch(*next(it))
-            return (torch.as_tensor(x).contiguous().to(self.device),
-                    torch.as_tensor(y).to(self.device))
-        return batch
+    def _step_rows(self, step: int, k: int, batch: int) -> dict:
+        """The rates of updates ``step .. step + k - 1`` (``"lr"``, ``[k]``)
+        and, under ``--augment_flip_x``, their x-mirror masks (``"mask"``,
+        ``[k, rows]``): this rank's rows of masks drawn for a global batch
+        of ``batch`` frames."""
+        out = {"lr": lr_rows(self._lr_table, step, k)}
+        if self._flip is not None:
+            out["mask"] = mesh.local_rows(augment.flip_mask_block(
+                self.c.seed, step, k, batch), self.layout.batch, 1)
+        return out
 
     def _chunk_blocks(self, num_steps: int, start: int, k: int):
         """``block(step)`` -> the host inputs of the chunk of ``k`` updates
-        after ``step`` updates (:meth:`graph.StepGraph.fill`): the rates,
-        the x-mirror's masks, and the cache's indices or the stream's next
-        ``k`` batches.  Row ``i`` of each is what the eager step ``step + i
-        + 1`` takes."""
-        c = self.c
-        it = (None if c.device_data_cache
-              else self._host_batches(num_steps, start))
+        after ``step`` updates (:meth:`graph.StepGraph.fill`), this rank's
+        rows of each: :meth:`_step_rows`, and the cache's indices
+        (``"idx"``) or the next ``k`` host batches (``"x"``, ``"y"``)."""
+        c, lay = self.c, self.layout
+        cache = c.device_data_cache and c.arch != "nn"
+        it = None if cache else self._host_batches(num_steps, start)
 
         def block(step: int) -> dict:
             with spans.span("train.block"):
-                out = {"lr": lr_rows(self._lr_table, step, k)}
-                if self._flip is not None:
-                    out["mask"] = augment.flip_mask_block(c.seed, step, k,
-                                                          c.batch_size)
-                if it is None:
-                    out["idx"] = self._cache_indices(step + 1, k)
+                out = self._step_rows(step, k, c.batch_size)
+                if cache:
+                    # a rank gathers its rows (spatial: every index, its
+                    # rows of each field are the cache's)
+                    out["idx"] = mesh.local_rows(
+                        self._cache_indices(step + 1, k).astype(np.int64),
+                        lay.batch, 1, self.pair_mode)
                 else:
-                    rows = [next(it) for _ in range(k)]
+                    rows = [self.local_batch(*next(it)) for _ in range(k)]
                     out["x"] = [x for x, _ in rows]
                     out["y"] = [y for _, y in rows]
             return out
@@ -796,17 +787,9 @@ class Trainer:
 
     def _chunk_runner(self, num_steps: int, start: int, k: int):
         """``run(take)`` -> the last losses of the next ``take`` steps
-        (``take`` is ``k`` on the chunked paths)."""
-        if self.step_path == graph.EAGER:
-            batch = self._batch_source(num_steps, start)
-
-            def run(take: int) -> dict[str, torch.Tensor]:
-                for _ in range(take):
-                    aux = self._train_step(*batch(self.step + 1))
-                return aux
-            return run
-        chunks = self._chunks = graph.StepGraph(
-            self, k, capture=self.step_path == graph.GRAPH)
+        (``take`` is ``k``): one chunk of the body, captured where
+        ``self.capture``."""
+        chunks = self._chunks = graph.StepGraph(self, k, self.capture)
         block = self._chunk_blocks(num_steps, start, k)
 
         def run(take: int) -> dict[str, torch.Tensor]:

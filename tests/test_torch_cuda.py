@@ -836,16 +836,14 @@ def test_datagen_cli_raises_without_a_card(tmp_path):
 # --- the train step as a CUDA graph (train/graph.py) -------------------------
 
 def _graph_pair(cfg: Config, device, k: int) -> tuple[Trainer, Trainer]:
-    """Two trainers of ``cfg`` at ``--steps_per_call k``: one on the graph
-    path, one running the graph's body eagerly."""
-    from deepfluids_tpu_torch.train import graph
-
+    """Two trainers of ``cfg`` at ``--steps_per_call k``: one capturing
+    its chunk body as a CUDA graph, one running that body uncaptured."""
     cfg = Config(**{**cfg.__dict__, "steps_per_call": k})
     out = []
-    for tag, path in (("g", graph.GRAPH), ("e", graph.CHUNK)):
+    for tag, capture in (("g", True), ("e", False)):
         t = Trainer(Config(**{**cfg.__dict__, "tag": tag}), device=device)
-        assert t.step_path == graph.GRAPH and t._lr is not None
-        t.step_path = path
+        assert t.capture and t._lr is not None
+        t.capture = capture
         out.append(t)
     return tuple(out)
 
@@ -946,7 +944,6 @@ def test_graph_spans_in_a_profiled_run(cuda_device, tmp_path):
     import json
 
     from deepfluids_tpu_torch import spans
-    from deepfluids_tpu_torch.train import graph
 
     spans.take()                  # what earlier tests left behind
     cfg = Config(data_dir=_tiny_set(tmp_path, "vel", 2), dataset="vel",
@@ -959,7 +956,7 @@ def test_graph_spans_in_a_profiled_run(cuda_device, tmp_path):
                      device=cuda_device)
     plain = Trainer(Config(**{**cfg.__dict__, "tag": "q"}),
                     device=cuda_device)
-    assert traced.step_path == plain.step_path == graph.GRAPH
+    assert traced.capture and plain.capture
     assert traced.train(num_steps=8) == plain.train(num_steps=8)
     _same_state(traced, plain)
     [path] = glob.glob(str(tmp_path / "prof" / "*.trace.json"))

@@ -14,6 +14,7 @@ stream.  The dataset has 16 frames and the batch is 3, so batches cross
 epoch boundaries.
 """
 
+import gc
 import json
 import multiprocessing
 import os
@@ -237,6 +238,30 @@ def _no_children(timeout: float = 10.0) -> list:
     return multiprocessing.active_children()
 
 
+def test_workers_inherit_no_garbage(ds):
+    # An unreachable cycle left at the fork would be freed in a worker by
+    # its collector (a CUDA tensor in it aborts the worker): the stream
+    # collects in this process before its workers start.
+    freed = []
+
+    class Cycle:
+        def __del__(self):
+            freed.append(os.getpid())
+
+    gc.disable()                 # only an explicit collection frees it
+    try:
+        cycle = Cycle()
+        cycle.me = cycle
+        del cycle
+        it = grain_loader.make_grain_loader(ds, B, worker_count=2)
+        next(it)
+        assert freed == [os.getpid()]
+        it.close()
+    finally:
+        gc.enable()
+    assert _no_children() == []
+
+
 @pytest.mark.parametrize("how", ["closed", "exhausted"])
 def test_no_worker_outlives_the_stream(ds, how):
     assert not _no_children()
@@ -276,10 +301,10 @@ def test_trainer_batches_equal_jax_given_grains_order(data_dir, ds,
     use_order(monkeypatch, grain_orders(len(holdout_indices), 9), 9)
     want = list(jax_grain_loader(ds, 8, seed=9, worker_count=0,
                                  indices=holdout_indices, num_epochs=3))
-    batch = t._batch_source(len(want), 0)
+    block = t._chunk_blocks(len(want), 0, 1)
     try:
-        got = [tuple(a.numpy() for a in batch(k + 1))
-               for k in range(len(want))]
+        got = [tuple(rows[0].numpy() for rows in (b["x"], b["y"]))
+               for b in map(block, range(len(want)))]
     finally:
         t._stream.close()
     assert_same(got, want)
@@ -292,10 +317,10 @@ def test_trainer_never_draws_a_holdout_frame(data_dir, ds, tmp_path):
     held = {int(i) for i in t.bm.eval_indices}
     assert len(held) == 4
     ids = frame_ids(ds)
-    batch = t._batch_source(12, 0)
+    block = t._chunk_blocks(12, 0, 1)
     try:
         seen = {ids[row.numpy().tobytes()] for k in range(12)
-                for row in batch(k + 1)[1]}
+                for row in block(k)["y"][0]}
     finally:
         t._stream.close()
     assert seen == set(range(FRAMES)) - held

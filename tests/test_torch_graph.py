@@ -1,13 +1,14 @@
-"""The port's compiled train step (``train/graph.py``) on the CPU.
+"""The port's one train step path (``train/graph.py``) on the CPU.
 
-The CUDA graph itself needs a card (``tests/test_torch_cuda.py``); here the
-graph's body runs eagerly from its static inputs (the ``chunk`` path) and
-is held bit for bit against the eager loop of ``Trainer._train_step``, and
-the host blocks that fill those inputs (the schedule's table, the x-mirror's
-masks, the device cache's indices) against their per-step values and the
-JAX package's.  Datasets are made with numpy from a seed.
+The CUDA graph itself needs a card (``tests/test_torch_cuda.py``); here
+every run takes the graph's body uncaptured from its static inputs, and K
+steps a chunk are held bit for bit against one step a chunk, and the host
+blocks that fill those inputs (the schedule's table, the x-mirror's masks,
+the device cache's indices) against their per-step values and the JAX
+package's.  Datasets (and "nn"'s code set) are made with numpy from a seed.
 """
 
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -60,10 +61,35 @@ def _write_set(root, name: str, grid: tuple, scenes: int, frames: int,
                                 np.float32))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tiny models gain nothing from more, and
+    the test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _write_codes(root, name: str, scenes: int, frames: int, z_num: int,
+                 seed: int) -> None:
+    """Random ``[frames, z_num]`` code sequences of set ``name``'s scenes,
+    with its raw params, where arch "nn" reads them."""
+    out = os.path.join(root, name, f"code{z_num}")
+    os.makedirs(out)
+    rng = np.random.default_rng(seed)
+    for s in range(scenes):
+        np.savez(os.path.join(out, f"{s}_0.npz"),
+                 z=rng.standard_normal((frames, z_num)).astype(np.float32),
+                 p=np.array([[0.2 + 0.3 * s, 0.04 + 0.02 * s, t]
+                             for t in range(frames)], np.float32))
+
+
 @pytest.fixture(scope="module")
 def data_dir(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("data"))
     _write_set(root, "tiny2d", GRID_2D, scenes=3, frames=5, seed=21)
+    _write_codes(root, "tiny2d", scenes=3, frames=5, z_num=8, seed=23)
     _write_set(root, "tiny3d", GRID_3D, scenes=2, frames=3, seed=22)
     return root
 
@@ -78,10 +104,8 @@ def _config(data_dir, log_dir, **kw) -> Config:
     return Config(**base)
 
 
-def _trainer(data_dir, log_dir, path: str, **kw) -> Trainer:
-    t = Trainer(_config(data_dir, log_dir, tag=path, **kw), device="cpu")
-    t.step_path = path
-    return t
+def _trainer(data_dir, log_dir, tag: str, **kw) -> Trainer:
+    return Trainer(_config(data_dir, log_dir, tag=tag, **kw), device="cpu")
 
 
 def _assert_same_state(got: Trainer, want: Trainer) -> None:
@@ -150,8 +174,8 @@ def test_index_block_rows_are_the_per_step_draws(seed, step, k, n, batch):
 def test_cache_index_block_rows_are_the_eager_gathers(data_dir, tmp_path,
                                                       pair):
     kw = dict(arch="ae", ae_pred_w=0.5) if pair else {}
-    t = _trainer(data_dir, str(tmp_path), graph.CHUNK,
-                 device_data_cache=True, **kw)
+    t = _trainer(data_dir, str(tmp_path), "idx", device_data_cache=True,
+                 **kw)
     pool = t.bm.train_pair_indices if pair else t.bm.train_indices
     block = t._cache_indices(6, 5)
     assert block.shape == (5, 8 if pair else 4)
@@ -163,7 +187,7 @@ def test_cache_index_block_rows_are_the_eager_gathers(data_dir, tmp_path,
         np.testing.assert_array_equal(block[i], idx)
 
 
-# --- the chunk body against the eager loop -----------------------------------
+# --- K steps a chunk against one step a chunk --------------------------------
 
 CASES = {
     "de2d_flip_clip_cache": dict(augment_flip_x=True, grad_clip=0.05,
@@ -174,26 +198,58 @@ CASES = {
     "ae_pair_stream": dict(arch="ae", ae_pred_w=0.5, grad_clip=0.05),
     "de3d_cache": dict(dataset="tiny3d", grad_clip=0.05, batch_size=2,
                        device_data_cache=True, cache_dtype="float16"),
+    "nn_noise": dict(arch="nn", nn_noise=0.05, nn_history=2, w_num=4,
+                     nn_hidden=16),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_chunk_body_equals_the_eager_steps(data_dir, tmp_path, case):
-    # K = 4 over 3 chunks from the static inputs against 12 calls of
-    # _train_step: the same weights, Adam state and reported losses.
-    kw = dict(CASES[case], steps_per_call=4)
-    chunk = _trainer(data_dir, str(tmp_path), graph.CHUNK, **kw)
-    eager = _trainer(data_dir, str(tmp_path), graph.EAGER, **kw)
-    got, want = chunk.train(num_steps=12), eager.train(num_steps=12)
+    # K = 4 over 3 chunks from the static inputs against 12 chunks of one
+    # step (what the eager loop was): the same weights, Adam state and
+    # reported losses; each update gets its own step's batch, mask, rate
+    # and, for "nn", --nn_noise stream.
+    kw = CASES[case]
+    chunk = _trainer(data_dir, str(tmp_path), "k4", steps_per_call=4, **kw)
+    one = _trainer(data_dir, str(tmp_path), "k1", steps_per_call=1, **kw)
+    got, want = chunk.train(num_steps=12), one.train(num_steps=12)
     assert chunk.step == 12 and got == want and np.isfinite(got["loss"])
-    _assert_same_state(chunk, eager)
+    _assert_same_state(chunk, one)
     static = chunk._chunks.static
     assert static["lr"].shape == (4,)
     assert ("idx" in static) == bool(kw.get("device_data_cache"))
+    if "idx" in static:               # the gather's index type
+        assert static["idx"].dtype == torch.int64
     assert ("mask" in static) == bool(kw.get("augment_flip_x"))
-    if "x" in static:
+    if kw.get("arch") == "nn":        # [K, W, B, z_num] code windows
+        assert static["x"].shape == (4, 4, 4, 8)
+    elif "x" in static:
         rows = 8 if kw.get("arch") == "ae" else kw.get("batch_size", 4)
         assert static["x"].shape[:2] == (4, rows)
+
+
+def test_debug_nans_names_the_poisoned_step(data_dir, tmp_path,
+                                            monkeypatch):
+    # --debug_nans at K = 4: a loss made NaN at the 7th update (inside the
+    # second chunk) raises naming step 7, before that update is applied:
+    # the weights are those of 6 clean steps.
+    kw = dict(debug_nans=True, device_data_cache=True)
+    t = _trainer(data_dir, str(tmp_path), "nan", steps_per_call=4, **kw)
+    loss_fn = t._loss_fn
+
+    def poisoned(model, a, b, step=0):
+        loss, aux = loss_fn(model, a, b, step)
+        return (loss * float("nan") if step == 6 else loss), aux
+
+    monkeypatch.setattr(t, "_loss_fn", poisoned)
+    with pytest.raises(FloatingPointError,
+                       match=r"^--debug_nans: step 7: loss is not finite"):
+        t.train(num_steps=8)
+    want = _trainer(data_dir, str(tmp_path), "clean", **kw)
+    want.train(num_steps=6)
+    for k, v in want.model.state_dict().items():
+        torch.testing.assert_close(t.model.state_dict()[k], v, atol=0,
+                                   rtol=0, msg=k)
 
 
 # --- where the graph applies -------------------------------------------------
@@ -201,54 +257,52 @@ def test_chunk_body_equals_the_eager_steps(data_dir, tmp_path, case):
 _TWO = comm.Shard(size=2)
 
 
-@pytest.mark.parametrize("device,kw,layout,path,reason", [
-    ("cuda", {}, mesh.Layout(), graph.GRAPH, "one card, arch de"),
+@pytest.mark.parametrize("device,kw,layout,captured,reason", [
+    ("cuda", {}, mesh.Layout(), True, "one card, arch de"),
     ("cuda", {"arch": "ae", "ae_pred_w": 0.5, "steps_per_call": 8},
-     mesh.Layout(), graph.GRAPH, "--steps_per_call 8 steps"),
+     mesh.Layout(), True, "--steps_per_call 8 steps"),
     ("cuda", {"augment_flip_x": True, "grad_clip": 1.0,
               "input_pipeline": "grain", "dataset": "tiny3d"},
-     mesh.Layout(), graph.GRAPH, "one card"),
-    ("cuda", {"debug_nans": True}, mesh.Layout(), graph.EAGER,
-     "--debug_nans"),
-    ("cuda", {"arch": "nn"}, mesh.Layout(), graph.EAGER, "arch nn"),
-    ("cuda", {}, mesh.Layout(world=2, data=_TWO), graph.EAGER,
+     mesh.Layout(), True, "one card"),
+    ("cuda", {"debug_nans": True}, mesh.Layout(), False, "--debug_nans"),
+    ("cuda", {"arch": "nn"}, mesh.Layout(), False, "arch nn"),
+    ("cuda", {}, mesh.Layout(world=2, data=_TWO), False, "multi-rank"),
+    ("cuda", {}, mesh.Layout(world=2, data=_TWO, spatial=True), False,
      "multi-rank"),
-    ("cuda", {}, mesh.Layout(world=2, data=_TWO, spatial=True),
-     graph.EAGER, "multi-rank"),
-    ("cuda", {"arch": "ae"}, mesh.Layout(world=2, model=_TWO), graph.EAGER,
+    ("cuda", {"arch": "ae"}, mesh.Layout(world=2, model=_TWO), False,
      "multi-rank"),
-    ("cpu", {}, mesh.Layout(), graph.EAGER, "cpu")])
-def test_choose_path(device, kw, layout, path, reason):
+    ("cpu", {}, mesh.Layout(), False, "cpu")])
+def test_choose_path(device, kw, layout, captured, reason):
     c = Config(**kw)
-    got, why = graph.choose_path(c, torch.device(device), layout)
-    assert got == path and reason in why, why
+    got, why = graph.should_capture(c, torch.device(device), layout)
+    assert got == captured and reason in why, why
     # Adam's rate lives on the device on every one-card de/ae card run,
     # --debug_nans included
     assert graph.device_lr(c, torch.device(device), layout) == (
-        path == graph.GRAPH or kw.get("debug_nans", False))
+        captured or kw.get("debug_nans", False))
 
 
 def test_trainer_takes_the_chosen_path(data_dir, tmp_path):
     for kw in ({}, {"debug_nans": True}):
         t = Trainer(_config(data_dir, str(tmp_path), **kw), device="cpu")
-        assert t.step_path == graph.EAGER and t._lr is None
+        assert not t.capture and t._lr is None
         assert not t.opt.param_groups[0]["capturable"]
 
 
 # --- checkpoints -------------------------------------------------------------
 
 def test_checkpoint_round_trip_between_chunk_and_eager(data_dir, tmp_path):
-    # 8 steps on the graph's body, 8 eager from its checkpoint, 8 more on
-    # the body from that one: the uninterrupted eager run's state.
-    kw = dict(augment_flip_x=True, device_data_cache=True, steps_per_call=4)
-    want = _trainer(data_dir, str(tmp_path), graph.EAGER, **kw)
+    # 8 steps at K = 4, 8 at K = 1 from its checkpoint, 8 more at K = 4
+    # from that one: the uninterrupted K = 1 run's state.
+    kw = dict(augment_flip_x=True, device_data_cache=True)
+    want = _trainer(data_dir, str(tmp_path), "want", **kw)
     want.train(num_steps=24)
-    first = _trainer(data_dir, str(tmp_path), graph.CHUNK, **kw)
+    first = _trainer(data_dir, str(tmp_path), "k4", steps_per_call=4, **kw)
     first.train(num_steps=8)
     run = first.run_dir
-    for path, at in ((graph.EAGER, 8), (graph.CHUNK, 16)):
-        t = Trainer(first.c, run_dir=run, device="cpu", save_cfg=False)
-        t.step_path = path
+    for k, at in ((1, 8), (4, 16)):
+        t = Trainer(dataclasses.replace(first.c, steps_per_call=k),
+                    run_dir=run, device="cpu", save_cfg=False)
         assert t.restore_checkpoint() == at
         t.train(num_steps=8)
     _assert_same_state(t, want)
@@ -256,17 +310,17 @@ def test_checkpoint_round_trip_between_chunk_and_eager(data_dir, tmp_path):
 
 def test_resume_from_a_checkpoint_of_the_earlier_format(data_dir, tmp_path):
     # A checkpoint as the trainer wrote it before the graph (the plain
-    # Adam's own state_dict) resumes on the graph's body.
-    kw = dict(grad_clip=0.05, device_data_cache=True, steps_per_call=2)
-    want = _trainer(data_dir, str(tmp_path), graph.EAGER, **kw)
+    # Adam's own state_dict) resumes at K = 2.
+    kw = dict(grad_clip=0.05, device_data_cache=True)
+    want = _trainer(data_dir, str(tmp_path), "want", **kw)
     want.train(num_steps=12)
-    old = _trainer(data_dir, str(tmp_path), graph.EAGER, **kw)
+    old = _trainer(data_dir, str(tmp_path), "old", **kw)
     old.train(num_steps=6)
     path = os.path.join(old.ckpt_dir, "6", CKPT_FILE)
     torch.save({"params": old.model.state_dict(),
                 "opt_state": old.opt.state_dict(), "step": old.step}, path)
-    t = Trainer(old.c, run_dir=old.run_dir, device="cpu", save_cfg=False)
-    t.step_path = graph.CHUNK
+    t = Trainer(dataclasses.replace(old.c, steps_per_call=2),
+                run_dir=old.run_dir, device="cpu", save_cfg=False)
     assert t.restore_checkpoint() == 6
     t.train(num_steps=6)
     _assert_same_state(t, want)
@@ -280,10 +334,10 @@ def test_resume_from_a_checkpoint_of_contiguous_conv_weights(data_dir,
     # trains on as the uninterrupted run.
     from deepfluids_tpu_torch.parallel import layers
 
-    kw = dict(device_data_cache=True, steps_per_call=2)
-    want = _trainer(data_dir, str(tmp_path), graph.EAGER, **kw)
+    kw = dict(device_data_cache=True)
+    want = _trainer(data_dir, str(tmp_path), "want", **kw)
     want.train(num_steps=12)
-    old = _trainer(data_dir, str(tmp_path), graph.EAGER, **kw)
+    old = _trainer(data_dir, str(tmp_path), "old", **kw)
     old.train(num_steps=6)
     params = {k: v.contiguous() for k, v in old.model.state_dict().items()}
     sd = portable_optimizer_state(old.opt.state_dict())
@@ -293,8 +347,8 @@ def test_resume_from_a_checkpoint_of_contiguous_conv_weights(data_dir,
                for st in sd["state"].values() if st["exp_avg"].dim() >= 4)
     path = os.path.join(old.ckpt_dir, "6", CKPT_FILE)
     torch.save({"params": params, "opt_state": sd, "step": 6}, path)
-    t = Trainer(old.c, run_dir=old.run_dir, device="cpu", save_cfg=False)
-    t.step_path = graph.CHUNK
+    t = Trainer(dataclasses.replace(old.c, steps_per_call=2),
+                run_dir=old.run_dir, device="cpu", save_cfg=False)
     assert t.restore_checkpoint() == 6
     _assert_same_state(t, old)
     for p in t.model.parameters():
@@ -306,7 +360,7 @@ def test_resume_from_a_checkpoint_of_contiguous_conv_weights(data_dir,
 
 def test_portable_optimizer_state(data_dir, tmp_path):
     # A plain Adam's state_dict is already in the checkpoint's form ...
-    t = _trainer(data_dir, str(tmp_path), graph.EAGER)
+    t = _trainer(data_dir, str(tmp_path), "k1")
     t.train(num_steps=2)
     sd = t.opt.state_dict()
     port = portable_optimizer_state(sd)

@@ -1,7 +1,7 @@
 """The port's host spans (``deepfluids_tpu_torch.spans``): totals, counts
 and self time with the profiler off; nested ``user_annotation`` rows under
-a CPU ``torch.profiler``; and the spans of the trainer's chunked
-path, of its ``metrics.jsonl`` and of ``sweep_on_device``'s ring copies."""
+a CPU ``torch.profiler``; and the spans of the trainer's step path
+(its chunk body, uncaptured on the CPU), of its ``metrics.jsonl`` and of ``sweep_on_device``'s ring copies."""
 
 from __future__ import annotations
 
@@ -19,7 +19,6 @@ from deepfluids_tpu_torch import spans
 from deepfluids_tpu_torch.config import Config
 from deepfluids_tpu_torch.data import Manifest, save_manifest
 from deepfluids_tpu_torch.infer.sweep import param_grid, sweep_on_device
-from deepfluids_tpu_torch.train import graph
 from deepfluids_tpu_torch.train.trainer import Trainer
 
 GRID = (16, 12)
@@ -127,13 +126,11 @@ def _chunked(root: str, tag: str, **kw) -> Trainer:
                lr_max=2e-3, lr_min=1e-4, log_step=2, test_step=10_000,
                save_step=4, compute_dtype="float32", num_worker=1, seed=3,
                device_data_cache=True, **kw)
-    t = Trainer(c, device="cpu")
-    t.step_path = graph.CHUNK
-    return t
+    return Trainer(c, device="cpu")
 
 
 def test_the_chunked_trainer_traces_its_feed(tmp_path):
-    # --profile_steps 3,6 on the chunked path: the window's chunks as
+    # --profile_steps 3,6 on the uncaptured body: the window's chunks as
     # train.block, train.fill and train.replay rows, one each a chunk in
     # order; the same trajectory as the run without it.
     root = _dataset(str(tmp_path))

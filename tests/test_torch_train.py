@@ -343,7 +343,8 @@ def test_checkpoints_keep_three_and_lr_resumes(data_dir, tmp_path):
     assert t2.maybe_resume() == 9
     # the schedule continues at the restored count
     t2.train(num_steps=1)
-    assert t2.opt.param_groups[0]["lr"] == t2.lr_fn(9)
+    assert t2.opt.param_groups[0]["lr"] == cosine_lr_schedule(
+        c.lr_max, c.lr_min, c.max_step)(9)
     rows = [json.loads(ln) for ln in open(os.path.join(t.run_dir,
                                                        "metrics.jsonl"))]
     assert [r["step"] for r in rows] == [3, 6, 9, 10]
