@@ -5,6 +5,7 @@
                                    # cost of the models' activation
     python3 chip_smoke.py side <tree>  # one side of a parent/change
                                    # comparison of the training path
+    python3 chip_smoke.py epilogue # phases 1 and 2's epilogue kernels
 
 Drives the port's serving and training paths, 2D (configs #1/#2,
 smoke_pos21_size5), 3D (config #5, smoke3_vel5_buo3), config #3's liquid
@@ -26,7 +27,11 @@ exits non-zero:
      and fd3d goldens; the backward kernels refuse extents < 3; gradients
      through ``curl2d_p`` / ``jacobian2d_p`` / ``curl3d_p`` /
      ``jacobian3d_p`` (also with one output unused) against autograd of
-     the plain ops;
+     the plain ops; then the conv stack's two epilogue kernels (bias add +
+     leaky ReLU, its backward) bit-equal to their plain versions on every
+     stage's map of the three benchmark cells and on contiguous maps, the
+     forward to aten's ``add_`` + ``F.leaky_relu`` on cuDNN's output, and
+     their device times beside their bound, the plain version's and aten's;
   3. the generator goldens, 2D and 3D: Flax-init weights (tests/golden)
      through the port's GeneratorBE and the curl kernels, against JAX;
   4. the serving path at full width, 2D, 3D and liquid:
@@ -747,6 +752,157 @@ def phase_kernels(device) -> dict:
     return worst
 
 
+# The conv stack's epilogue kernels (ops/bias_act.py) on the maps [B, C,
+# *spatial] of each cell, every stage, channels-last: the 2D step's batch
+# 8, the sweep's 512 and the 3D step's 8; contiguous NC(D)HW (the sharded
+# paths) at batch 2 and at the 2D and 3D odd shapes; timed at the sweep's
+# largest map and the 3D step's.
+EPILOGUE_SHAPES = (
+    [(b, 128, 8 << s, 6 << s) for b in (8, 512) for s in range(5)]
+    + [(8, 128, 4 << s, 8 << s, 14 << s) for s in range(4)])
+EPILOGUE_NC_SHAPES = [(2, 128, 64, 48), (2, 128, 16, 32, 56), (3, 12, 9, 37),
+                      (2, 3, 5, 6, 7)]
+EPILOGUE_TIMED = [(512, 128, 128, 96), (8, 128, 32, 64, 112)]
+
+
+def _epilogue_map(shape, channels_last: bool, dtype, gen, device):
+    """A random map ``[B, C, *spatial]`` in the layout, a twentieth of its
+    entries exact zeros of either sign."""
+    import torch
+
+    nd = len(shape) - 2
+    phys = (shape[:1] + shape[2:] + shape[1:2]) if channels_last else shape
+    x = torch.randn(phys, generator=gen, device=device)
+    hit = torch.rand(phys, generator=gen, device=device)
+    x = torch.where(hit < 0.025, 0.0, torch.where(hit < 0.05, -0.0, x))
+    x = x.to(dtype)
+    return x.permute(0, nd + 1, *range(1, nd + 1)) if channels_last else x
+
+
+def phase_epilogue(device, card: str) -> dict:
+    """Phase 2's epilogue kernels: each bit-equal to its plain version on
+    every map of the cells (and contiguous maps), the forward bit-equal to
+    aten's ``add_`` + ``F.leaky_relu`` on the same cuDNN output and the
+    backward to the parent's ``where(t >= 0, g, g * slope)`` of the
+    pre-activation; then their device times at ``EPILOGUE_TIMED`` beside
+    their bound (bytes at 3.35 TB/s), the plain version's and
+    ``library_ms`` (aten's ``add_`` + ``F.leaky_relu``; its
+    ``leaky_relu_backward``), a yardstick the port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepfluids_tpu_torch.ops import bias_act
+
+    slope = 0.2
+    gen = torch.Generator(device=device).manual_seed(25)
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = ([(s, True) for s in EPILOGUE_SHAPES]
+                 + [(s, False) for s in EPILOGUE_NC_SHAPES])
+        for shape, last in cases:
+            x = _epilogue_map(shape, last, dtype, gen, device)
+            b = torch.randn(shape[1], generator=gen, device=device).to(dtype)
+            b[0], b[-1] = 0.0, -0.0
+            # a tenth of the entries cancel their bias exactly
+            cancel = torch.rand(x.shape, generator=gen, device=device) < 0.1
+            x.copy_(torch.where(cancel, -bias_act.add_bias(
+                torch.zeros_like(x), b), x))
+            y = bias_act.bias_leaky_relu_fwd(x, b, slope)
+            g = _epilogue_map(shape, last, dtype, gen, device)
+            dx = bias_act.leaky_relu_bwd(y, g, slope)
+            want_y = bias_act.bias_leaky_relu_plain(x, b, slope)
+            want_dx = bias_act.leaky_relu_bwd_plain(y, g, slope)
+            torch.cuda.synchronize()
+            what = f"{tuple(shape)} {dtype} {'NHWC' if last else 'NCHW'}"
+            if bias_act.layout(y) != bias_act.layout(x):
+                raise AssertionError(f"epilogue fwd {what}: layout changed")
+            if not (torch.equal(y, want_y) and torch.equal(
+                    torch.signbit(y), torch.signbit(want_y))):
+                raise AssertionError(f"epilogue fwd {what}: not bit-equal "
+                                     f"to plain")
+            if not torch.equal(dx, want_dx):
+                raise AssertionError(f"epilogue bwd {what}: not bit-equal "
+                                     f"to plain")
+            t = bias_act.add_bias(x, b)
+            if not torch.equal(dx, torch.where(t >= 0, g, g * slope)):
+                raise AssertionError(f"epilogue bwd {what}: not the parent's "
+                                     f"where(t >= 0, g, g * slope)")
+            checked += 1
+            del x, y, g, dx, want_y, want_dx, t, cancel
+    # on cuDNN's own output: the parent's conv with bias adds it by add_
+    aten = {}
+    for nd, shape in ((2, (8, 128, 32, 24)), (3, (8, 128, 8, 16, 28))):
+        conv = F.conv2d if nd == 2 else F.conv3d
+        fmt = torch.channels_last if nd == 2 else torch.channels_last_3d
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device=device).to(
+                dtype).contiguous(memory_format=fmt)
+            w = (torch.randn((128, 128) + (3,) * nd, generator=gen,
+                             device=device) * (128 * 3 ** nd) ** -0.5).to(
+                dtype).contiguous(memory_format=fmt)
+            b = (0.1 * torch.randn(128, generator=gen, device=device)).to(
+                dtype)
+            c = conv(x, w, padding=1)
+            got = bias_act.bias_leaky_relu_fwd(c, b, slope)
+            want = F.leaky_relu(c.clone().add_(bias_act.add_bias(
+                torch.zeros((1, 128) + (1,) * nd, device=device,
+                            dtype=dtype), b)), slope)
+            with_bias = F.leaky_relu(conv(x, w, b, padding=1), slope)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"epilogue fwd {nd}D {dtype}: not "
+                                     f"bit-equal to add_ + F.leaky_relu on "
+                                     f"cuDNN's output")
+            aten[f"{nd}d_{str(dtype)[6:]}"] = bool(torch.equal(got,
+                                                               with_bias))
+    print(f"phase 2 epilogue kernels vs plain: ok  fwd and bwd bit-equal on "
+          f"{checked} maps (f32/bf16; the cells' stages channels-last, "
+          f"{len(EPILOGUE_NC_SHAPES)} contiguous NC(D)HW), zeros of both "
+          f"signs, the bwd the parent's where form; fwd bit-equal to add_ + "
+          f"F.leaky_relu on cuDNN's output; equal to the conv given its bias "
+          f"then F.leaky_relu: {aten}", flush=True)
+    timings = []
+    for shape in EPILOGUE_TIMED:
+        dtype = torch.bfloat16
+        x = _epilogue_map(shape, True, dtype, gen, device)
+        b = torch.randn(shape[1], generator=gen, device=device).to(dtype)
+        g = _epilogue_map(shape, True, dtype, gen, device)
+        y = bias_act.bias_leaky_relu_fwd(x, b, slope)
+        scratch = x.clone()
+        bview = bias_act.add_bias(torch.zeros((1, shape[1]) + (1,) * (
+            len(shape) - 2), device=device, dtype=dtype), b)
+        el = x.numel() * x.element_size()
+        fwd = {
+            "kernel": lambda: bias_act.bias_leaky_relu_fwd(x, b, slope),
+            "plain": lambda: bias_act.bias_leaky_relu_plain(x, b, slope),
+            "library": lambda: F.leaky_relu(scratch.add_(bview), slope)}
+        bwd = {
+            "kernel": lambda: bias_act.leaky_relu_bwd(y, g, slope),
+            "plain": lambda: bias_act.leaky_relu_bwd_plain(y, g, slope),
+            "library": lambda: torch.ops.aten.leaky_relu_backward(
+                g, y, slope, False)}
+        for name, fns, nbytes in (("bias_leaky_relu_fwd", fwd, 2 * el),
+                                  ("leaky_relu_bwd", bwd, 3 * el)):
+            ms = {k: min(cuda_ms(f, 20) for _ in range(2))
+                  for k, f in fns.items()}
+            bound = nbytes / 3.35e12 * 1e3
+            row = {"name": name, "shape": list(shape), "dtype": "bfloat16",
+                   "layout": "channels_last", "ms": ms["kernel"],
+                   "bound_ms": bound, "share": bound / ms["kernel"],
+                   "plain_ms": ms["plain"], "library_ms": ms["library"],
+                   "card": card}
+            timings.append(row)
+            print(f"phase 2 epilogue timing {name} {tuple(shape)} bf16 NHWC "
+                  f"[{card}]: {ms['kernel']:.4f} ms, bound {bound:.4f} ms "
+                  f"({nbytes / 1e9:.3f} GB at 3.35 TB/s), share "
+                  f"{bound / ms['kernel']:.3f}; plain {ms['plain']:.4f} ms, "
+                  f"library {ms['library']:.4f} ms", flush=True)
+        del x, y, g, scratch
+    torch.cuda.empty_cache()
+    print(json.dumps({"epilogue_kernels": timings}), flush=True)
+    return {"epilogue": timings}
+
+
 def phase_golden(device) -> None:
     import torch
 
@@ -1294,40 +1450,56 @@ def phase_train_parity(device, train: dict, path: MainPath) -> None:
 
 @contextlib.contextmanager
 def activation_as(fn):
-    """The models' activation replaced by ``fn`` (None: kept): the
-    generator and the encoder look ``activation.leaky_relu`` up at call
-    time."""
+    """The models' activation replaced by ``fn`` (None: kept), a function
+    of a conv's bias-free output, its bias and the slope: the generator and
+    the encoder look ``activation.bias_leaky_relu`` up at call time."""
     from deepfluids_tpu_torch.models import activation
 
-    saved = activation.leaky_relu
-    activation.leaky_relu = fn or saved
+    saved = activation.bias_leaky_relu
+    activation.bias_leaky_relu = fn or saved
     try:
         yield
     finally:
-        activation.leaky_relu = saved
+        activation.bias_leaky_relu = saved
+
+
+def with_bias(fn):
+    """An elementwise activation ``fn(t, slope)`` as the models' hook: the
+    bias added by aten first."""
+    from deepfluids_tpu_torch.ops import bias_act
+
+    return lambda x, b, slope: fn(bias_act.add_bias(x, b), slope)
 
 
 def _recording(fn, branches: list, zeros: list):
-    """``fn`` (an activation) that appends each call's branch ``x >= 0`` to
-    ``branches``, on the CPU, and its count of exact zeros to ``zeros``."""
-    def act(x, slope):
-        branches.append((x.detach() >= 0).cpu())
-        zeros.append(int((x.detach() == 0).sum()))
-        return fn(x, slope)
+    """``fn`` (the models' hook) that appends each call's branch ``x + b >=
+    0`` to ``branches``, on the CPU, and its count of exact zeros to
+    ``zeros``."""
+    from deepfluids_tpu_torch.ops import bias_act
+
+    def act(x, b, slope):
+        t = bias_act.add_bias(x.detach(), b.detach())
+        branches.append((t >= 0).cpu())
+        zeros.append(int((t == 0).sum()))
+        return fn(x, b, slope)
     return act
 
 
 def _replaying(branches: list):
-    """A leaky ReLU that takes, call by call, the branches ``branches``
-    recorded (``where(branch, x, slope * x)``, and its gradient likewise):
-    a float64 network replaying another step's kink decisions."""
+    """A leaky ReLU hook that takes, call by call, the branches
+    ``branches`` recorded (``where(branch, t, slope * t)`` of ``t = x +
+    b``, and its gradient likewise): a float64 network replaying another
+    step's kink decisions."""
     import torch
+
+    from deepfluids_tpu_torch.ops import bias_act
 
     calls = iter(branches)
 
-    def act(x, slope):
+    def act(x, b, slope):
+        t = bias_act.add_bias(x, b)
         branch = next(calls).to(x.device)
-        return torch.where(branch, x, x * slope)
+        return torch.where(branch, t, t * slope)
     return act
 
 
@@ -1367,7 +1539,10 @@ def cpu_parity_readings(device, train: dict, path: MainPath,
         trainers[dev] = t
         batches[dev] = [torch.from_numpy(a[:b]).to(dev)
                         for a in t.bm.step_batch(1)]
-    leaky = act or activation.leaky_relu
+    leaky = act or activation.bias_leaky_relu
+    # the kernels take f32 and bf16: the float64 network's leaky ReLU is the
+    # unfused one, with the same gradient at 0
+    leaky64 = act or with_bias(activation.leaky_relu)
 
     def step(dev, fn, f64: bool = False):
         t = trainers[dev]
@@ -1392,16 +1567,16 @@ def cpu_parity_readings(device, train: dict, path: MainPath,
     out, branches, zeros = {}, {}, {}
     for name, dev, fn in (("card", device, leaky), ("cpu", cpu, leaky),
                           ("card_slope01", device,
-                           lambda x, s: leaky(x, 0.1)),
-                          ("f64", device, leaky)):
+                           lambda x, b, s: leaky(x, b, 0.1)),
+                          ("f64", device, leaky64)):
         branches[name], zeros[name] = [], []
         out[name] = step(dev, _recording(fn, branches[name], zeros[name]),
                          f64=name == "f64")
     for name in ("card", "cpu", "card_slope01"):
         out[name + "_f64"] = step(device, _replaying(branches[name]),
                                   f64=True)
-    out["card_smooth"] = step(device, activation.smooth)
-    out["cpu_smooth"] = step(cpu, activation.smooth)
+    out["card_smooth"] = step(device, activation.bias_smooth)
+    out["cpu_smooth"] = step(cpu, activation.bias_smooth)
     torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = False
     out["flips"] = {name: sum(int((a != w).sum()) for a, w in
@@ -4016,7 +4191,7 @@ from deepfluids_tpu_torch.config import get_config
 from deepfluids_tpu_torch.models import activation
 from deepfluids_tpu_torch.ops import cuda_fd
 from deepfluids_tpu_torch.train.trainer import Trainer
-leaky = activation.leaky_relu
+leaky = activation.bias_leaky_relu
 seen, rows = set(), {}
 launch = cuda_fd._launch
 def recording(name, entry_, ins, outs):
@@ -4031,7 +4206,8 @@ for job in json.load(open(sys.argv[1])):
     cuda_fd.reset_launch_counts()
     seen.clear()
     rows.clear()
-    activation.leaky_relu = activation.smooth if job.get("smooth") else leaky
+    activation.bias_leaky_relu = (activation.bias_smooth if job.get("smooth")
+                                  else leaky)
     out = {"name": job["name"]}
     if job["mode"] == "main":
         entry.cli(job["argv"] + ["--device", "cuda"])
@@ -4463,7 +4639,7 @@ def phase_parallel(device, root: str, card: str, train: dict) -> dict:
     floor = _grad_errors({k: (halves[0][k] + halves[1][k]) / 2
                           for k in want_grads}, want_grads)
     gmax = max(float(np.abs(g).max()) for g in want_grads.values())
-    with activation_as(activation.smooth):
+    with activation_as(activation.bias_smooth):
         smooth_loss, smooth_grads = ref._loss_and_grads(a, b)
     # (e)'s references: each knob model from seeded random gains and bases
     # (zero at init), its leaky and smooth gradients in this process
@@ -4479,7 +4655,7 @@ def phase_parallel(device, root: str, card: str, train: dict) -> dict:
                     p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
         kref.save_checkpoint()
         leaky_ref = kref._loss_and_grads(a, b)
-        with activation_as(activation.smooth):
+        with activation_as(activation.bias_smooth):
             knob_refs[name] = (kref.run_dir, leaky_ref,
                                kref._loss_and_grads(a, b))
     torch.backends.cudnn.enabled = True
@@ -4730,6 +4906,7 @@ def run(device, card: str) -> list[dict]:
     t_start = time.perf_counter()
     timed("phase 1", phase_build, card)
     worst = timed("phase 2", phase_kernels, device)
+    timed("phase 2 epilogue", phase_epilogue, device, card)
     timed("phase 3", phase_golden, device)
     serving, train, timing, train_timing = {}, {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
@@ -4897,7 +5074,8 @@ def activation_readings(device, card: str) -> None:
     from deepfluids_tpu_torch.config import get_config
     from deepfluids_tpu_torch.train.trainer import Trainer
 
-    acts = {"the models' activation": None, "F.leaky_relu": F.leaky_relu}
+    acts = {"the models' activation": None,
+            "F.leaky_relu": with_bias(F.leaky_relu)}
     with tempfile.TemporaryDirectory(prefix="chip_readings_") as root:
         for k, (label, act) in enumerate(acts.items()):
             sub = os.path.join(root, str(k))
@@ -5032,6 +5210,10 @@ def main() -> None:
     if sys.argv[1:] == ["readings"]:
         phase_build(card)
         activation_readings(torch.device("cuda", 0), card)
+        return
+    if sys.argv[1:] == ["epilogue"]:
+        phase_build(card)
+        phase_epilogue(torch.device("cuda", 0), card)
         return
     kernels = run(torch.device("cuda", 0), card)
     print(json.dumps({"kernels": kernels}))

@@ -109,10 +109,16 @@ class Encoder(nn.Module):
         """Take the rank's rows of the field over ``shard``."""
         self.row_shard = shard
 
-    def _conv(self, layer: nn.Module, x: torch.Tensor,
-              rows: Shard | None) -> torch.Tensor:
+    def _conv(self, layer: nn.Module, x: torch.Tensor, rows: Shard | None,
+              bias: bool = True) -> torch.Tensor:
         return layers.conv(x, layer, self.compute_dtype, self._conv_fn,
-                           row_shard=rows)
+                           row_shard=rows, bias=bias)
+
+    def _act(self, layer: nn.Module, y: torch.Tensor) -> torch.Tensor:
+        """The leaky ReLU of ``layer``'s bias-free output ``y``, its bias
+        added in the same pass (:func:`.activation.bias_leaky_relu`)."""
+        return activation.bias_leaky_relu(
+            y, layer.bias.to(self.compute_dtype), ACT_SLOPE)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -122,16 +128,15 @@ class Encoder(nn.Module):
         h0 = h
         for stage in range(self.repeat):
             for c in range(self.num_conv):
-                h = activation.leaky_relu(
-                    self._conv(getattr(self, f"conv_{stage}_{c}"), h, rows),
-                    ACT_SLOPE)
+                layer = getattr(self, f"conv_{stage}_{c}")
+                h = self._act(layer, self._conv(layer, h, rows, bias=False))
             h = h + h0
             if stage < self.repeat - 1:
+                down = getattr(self, f"down_{stage}")
                 h, still = layers.conv_down(
-                    h, getattr(self, f"down_{stage}"), dt, self._conv_fn,
-                    self._down_pads[stage], rows)
+                    h, down, dt, self._conv_fn, self._down_pads[stage], rows)
                 rows = rows if still else None
-                h = activation.leaky_relu(h, ACT_SLOPE)
+                h = self._act(down, h)
                 h0 = h
         z = layers.dense_rows(h, self.fc_out, dt, rows)
         return z.float()

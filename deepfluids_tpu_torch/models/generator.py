@@ -404,13 +404,22 @@ class GeneratorBE(nn.Module):
         """Shard the feature maps' first spatial axis over ``shard``."""
         self.row_shard = shard
 
-    def _conv(self, layer: nn.Module, x: torch.Tensor,
-              extent: int) -> torch.Tensor:
+    def _conv(self, layer: nn.Module, x: torch.Tensor, extent: int,
+              bias: bool = True) -> torch.Tensor:
         """A 3x3(x3) 'SAME' conv of a map of ``extent`` rows."""
         rs = self.row_shard
         return layers.conv(x, layer, self.compute_dtype, self._conv_fn,
                            row_shard=rs if layers.sharded(extent, rs)
-                           else None)
+                           else None, bias=bias)
+
+    def _conv_act(self, layer: nn.Module, x: torch.Tensor,
+                  extent: int) -> torch.Tensor:
+        """:meth:`_conv` followed by the leaky ReLU: the bias-free conv
+        output and the bias in one pass
+        (:func:`.activation.bias_leaky_relu`)."""
+        return activation.bias_leaky_relu(
+            self._conv(layer, x, extent, bias=False),
+            layer.bias.to(self.compute_dtype), ACT_SLOPE)
 
     def _basis_inject(self, z: torch.Tensor, stage: int) -> torch.Tensor:
         """Stage ``stage``'s injection ``[B, filters, *res]``: the codes
@@ -446,8 +455,8 @@ class GeneratorBE(nn.Module):
             if self.inject:
                 x = x + self._basis_inject(z, stage)
             for c in range(self.num_conv):
-                x = activation.leaky_relu(self._conv(
-                    getattr(self, f"conv_{stage}_{c}"), x, extent), ACT_SLOPE)
+                x = self._conv_act(getattr(self, f"conv_{stage}_{c}"), x,
+                                   extent)
             if self.spectral:
                 rs = self.row_shard
                 x = getattr(self, f"spectral_{stage}")(

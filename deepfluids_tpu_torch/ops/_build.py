@@ -31,8 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # C signatures of the entry points: name -> (restype, argtypes).  Pointers
 # and the stream are c_void_p; a plain int would cut them to 32 bits.  After
-# the tensors, every entry point takes batch, its spatial extents (H, W in
-# 2D; D, H, W in 3D), dtype (0 f32 / 1 bf16), device and stream.
+# the tensors, every FD entry point takes batch, its spatial extents (H, W
+# in 2D; D, H, W in 3D), dtype (0 f32 / 1 bf16), device and stream; the
+# epilogue's (``epilogue.cu``) take their sizes and slope before the same
+# last three.
 _TAIL2 = [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _TAIL3 = [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SIGNATURES = {
@@ -48,6 +50,13 @@ _SIGNATURES = {
     "df_curl3d_bwd": (ctypes.c_int, [ctypes.c_void_p] * 2 + _TAIL3),  # g, out
     "df_jacobian3d_bwd": (ctypes.c_int,                  # gj, gv, out
                           [ctypes.c_void_p] * 3 + _TAIL3),
+    # x, bias, y; elements, C, points a channel, channels-last, slope
+    "df_bias_leaky_relu_fwd": (ctypes.c_int, [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_float] + _TAIL2[-3:]),
+    # y, g, dx; elements, slope
+    "df_leaky_relu_bwd": (ctypes.c_int, [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_float] + _TAIL2[-3:]),
 }
 
 _lock = threading.Lock()

@@ -73,7 +73,10 @@ def conv(x: torch.Tensor, layer: torch.nn.Module, dtype: torch.dtype,
     ``row_shard``: ``x`` holds the rank's rows; a stride-1 conv of padding
     1 reads one halo row on each side (zeros at the global edges) and pads
     the other axes only.  A layer with ``tp_shard`` computes its output
-    channels and gathers the rest.  Each call is counted in
+    channels and gathers the rest.  ``bias=False`` leaves the bias out: a
+    layer without one, or a conv whose bias the pass after it adds (the
+    models' :func:`..models.activation.bias_leaky_relu`, given
+    ``layer.bias.to(dtype)``).  Each call is counted in
     :data:`layout_counts` by its input's layout.
     """
     if row_shard is not None and row_shard.active:
@@ -96,7 +99,8 @@ def conv_down(x: torch.Tensor, layer: torch.nn.Module, dtype: torch.dtype,
               conv_fn: Callable, pads: Sequence[int],
               row_shard: Shard | None = None) -> tuple[torch.Tensor, bool]:
     """The encoder's stride-2 'SAME' conv (``F.pad`` widths ``pads``, last
-    axis first) -> ``(output, output is sharded)``.
+    axis first) without its bias, which the activation after it adds ->
+    ``(output, output is sharded)``.
 
     On a sharded map of an even number of rows a rank's output rows read
     its own and the successor's first row (the sharded axis pads ``(0,
@@ -108,11 +112,11 @@ def conv_down(x: torch.Tensor, layer: torch.nn.Module, dtype: torch.dtype,
             x = row_halo(x, row_shard, ROW_DIM, before=False, after=True)
             pads = tuple(pads[:-2]) + (0, 0)
             out = conv(F.pad(x, pads), layer, dtype, conv_fn, stride=2,
-                       padding=0)
+                       padding=0, bias=False)
             return out, True
         x = gather_rows(x, row_shard, ROW_DIM)
     return conv(F.pad(x, tuple(pads)), layer, dtype, conv_fn, stride=2,
-                padding=0), False
+                padding=0, bias=False), False
 
 
 def dense_rows(h: torch.Tensor, layer: torch.nn.Linear, dtype: torch.dtype,

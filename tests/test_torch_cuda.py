@@ -1111,3 +1111,137 @@ def test_batch_512_forward_runs_without_layout_transposes(cuda_device,
         names = _kernel_rows(lambda: model(z), tmp_path, "forward")
     assert layers.layout_counts == {"channels_last": 21, "other": 0}
     assert _transposes(names) == 1          # conv_out's output, as above
+
+
+# --- the conv stack's epilogue: bias add + leaky ReLU in one pass ----------
+
+# The maps [B, C, *spatial] of the three cells' conv stacks: the 2D step's
+# batch 8 and the sweep's 512 at each stage, the 3D step's 8 at each stage.
+EPILOGUE_CELL_SHAPES = (
+    [(b, 128, 8 << s, 6 << s) for b in (8, 512) for s in range(5)]
+    + [(8, 128, 4 << s, 8 << s, 14 << s) for s in range(4)])
+
+
+def _epilogue_maps(shape, channels_last, dtype, device, seed):
+    """A map of ``shape`` in the layout, a twentieth of it exact zeros of
+    either sign, a tenth cancelling its bias exactly; the bias (a zero and
+    a negative zero channel); a gradient map of the same layout."""
+    from deepfluids_tpu_torch.ops import bias_act
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    nd = len(shape) - 2
+    phys = (shape[:1] + shape[2:] + shape[1:2]) if channels_last else shape
+
+    def make():
+        x = torch.randn(phys, generator=gen, device=device)
+        hit = torch.rand(phys, generator=gen, device=device)
+        x = torch.where(hit < 0.025, 0.0, torch.where(hit < 0.05, -0.0, x))
+        x = x.to(dtype)
+        return x.permute(0, nd + 1, *range(1, nd + 1)) if channels_last else x
+
+    x, g = make(), make()
+    b = torch.randn(shape[1], generator=gen, device=device).to(dtype)
+    b[0], b[-1] = 0.0, -0.0
+    cancel = torch.rand(x.shape, generator=gen, device=device) < 0.1
+    x.copy_(torch.where(cancel, -bias_act.add_bias(torch.zeros_like(x), b),
+                        x))
+    return x, b, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", EPILOGUE_CELL_SHAPES + [
+    (2, 128, 64, 48), (2, 128, 16, 32, 56), (3, 12, 9, 37), (2, 3, 5, 6, 7),
+    (2, 24, 5, 7)])
+def test_epilogue_kernels_bit_equal_to_plain(cuda_device, shape, dtype):
+    # Both kernels against their plain versions, channels-last (the cells'
+    # layout) and contiguous NC(D)HW (the sharded paths), bit for bit; the
+    # backward also against the parent's where() of the pre-activation, so
+    # at 0 and -0.0 its gradient is 1.
+    from deepfluids_tpu_torch.ops import bias_act
+
+    for last in (True, False):
+        x, b, g = _epilogue_maps(shape, last, dtype, cuda_device,
+                                 seed=len(shape) + shape[1])
+        lay = bias_act.layout(x)
+        before = dict(bias_act.launch_counts)
+        y = bias_act.bias_leaky_relu_fwd(x, b, 0.2)
+        dx = bias_act.leaky_relu_bwd(y, g, 0.2)
+        torch.cuda.synchronize()
+        assert bias_act.launch_counts[f"bias_leaky_relu_fwd.{lay}"] == (
+            before[f"bias_leaky_relu_fwd.{lay}"] + 1)
+        assert bias_act.launch_counts[f"leaky_relu_bwd.{lay}"] == (
+            before[f"leaky_relu_bwd.{lay}"] + 1)
+        want = bias_act.bias_leaky_relu_plain(x, b, 0.2)
+        assert y.stride() == x.stride()
+        assert torch.equal(y, want)
+        assert torch.equal(torch.signbit(y), torch.signbit(want))
+        assert torch.equal(dx, bias_act.leaky_relu_bwd_plain(y, g, 0.2))
+        t = bias_act.add_bias(x, b)
+        assert torch.equal(dx, torch.where(t >= 0, g, g * 0.2))
+        zero = t == 0
+        assert zero.any() and torch.equal(dx[zero], g[zero])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nd", [2, 3])
+def test_epilogue_forward_bit_equal_to_aten_on_cudnn_output(cuda_device, nd,
+                                                            dtype):
+    # The parent's arithmetic on the card: cuDNN's conv output, the bias
+    # added by aten's add_, then F.leaky_relu.
+    import torch.nn.functional as F
+
+    from deepfluids_tpu_torch.ops import bias_act
+
+    gen = torch.Generator(device=cuda_device).manual_seed(nd)
+    shape = (8, 128, 32, 24) if nd == 2 else (8, 128, 8, 16, 28)
+    fmt = torch.channels_last if nd == 2 else torch.channels_last_3d
+    conv = F.conv2d if nd == 2 else F.conv3d
+    x = torch.randn(shape, generator=gen, device=cuda_device).to(
+        dtype).contiguous(memory_format=fmt)
+    w = (torch.randn((128, 128) + (3,) * nd, generator=gen,
+                     device=cuda_device) * (128 * 3 ** nd) ** -0.5).to(
+        dtype).contiguous(memory_format=fmt)
+    b = (0.1 * torch.randn(128, generator=gen, device=cuda_device)).to(dtype)
+    c = conv(x, w, padding=1)
+    got = bias_act.bias_leaky_relu_fwd(c, b, 0.2)
+    want = F.leaky_relu(c.clone().add_(b.view((1, -1) + (1,) * nd)), 0.2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(128, 96), (32, 64, 112)],
+                         ids=["2d", "3d"])
+def test_epilogue_launch_counts_forward_and_capture(cuda_device, tmp_path,
+                                                    grid):
+    # One flagship generator forward launches the forward kernel once a
+    # conv_{stage}_{c} (20 in 2D, 16 in 3D), channels-last; a step graph's
+    # train() call (the eager warm-up step and the capture) launches each
+    # kernel that many times a step, counted once at the capture.
+    from deepfluids_tpu_torch.ops import bias_act
+
+    per = {2: 20, 3: 16}[len(grid)]
+    model = GeneratorBE(grid + ((1,) if len(grid) == 2 else (3,)),
+                        num_param=3,
+                        compute_dtype=torch.bfloat16).to(cuda_device)
+    z = torch.rand((2, 3), device=cuda_device) * 2 - 1
+    bias_act.reset_launch_counts()
+    with torch.no_grad():
+        model(z)
+    torch.cuda.synchronize()
+    zeros = dict.fromkeys(bias_act.launch_counts, 0)
+    assert bias_act.launch_counts == {
+        **zeros, "bias_leaky_relu_fwd.channels_last": per}
+    cfg = Config(data_dir=_field_set(tmp_path, "flag", grid, 8),
+                 dataset="flag", num_worker=1, log_dir=str(tmp_path),
+                 device_data_cache=True)
+    g, _ = _graph_pair(cfg, cuda_device, 1)
+    bias_act.reset_launch_counts()
+    g.train(num_steps=3)
+    torch.cuda.synchronize()
+    assert g._chunks.graph is not None and g._chunks.replays == 2
+    assert bias_act.launch_counts == {
+        **zeros, "bias_leaky_relu_fwd.channels_last": 2 * per,
+        "leaky_relu_bwd.channels_last": 2 * per}

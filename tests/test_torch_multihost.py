@@ -27,9 +27,10 @@ and, with a smooth activation in place of the leaky ReLU, to 1e-5 of each
 parameter's largest entry: at the kink a pre-activation within rounding of
 zero takes either slope, so two exact computations that round otherwise
 (a haloed block, a cut layer) differ there by a whole point's share.  The
-stand-in replaces ``models.activation.leaky_relu``, the hook the models
-call; each comparison asserts that its loss differs from the leaky one's,
-so the stand-in is known to be live.
+stand-in replaces ``models.activation.bias_leaky_relu``, the hook the
+models call (a conv's bias add and the leaky ReLU in one); each comparison
+asserts that its loss differs from the leaky one's, so the stand-in is
+known to be live.
 """
 
 import json
@@ -67,9 +68,10 @@ from deepfluids_tpu_torch.models import activation
 from deepfluids_tpu_torch.train.trainer import Trainer
 parallel.init_distributed("cpu")
 rank = parallel.world()[0]
-leaky = activation.leaky_relu
+leaky = activation.bias_leaky_relu
 for job in json.load(open(sys.argv[1])):
-    activation.leaky_relu = activation.smooth if job.get("smooth") else leaky
+    activation.bias_leaky_relu = (activation.bias_smooth if job.get("smooth")
+                                  else leaky)
     t = Trainer(Config(**job["config"]), run_dir=job["run_dir"],
                 device="cpu", save_cfg=False)
     if job.get("resume"):
@@ -341,7 +343,8 @@ def test_layout_grads_match_one_process_without_the_kink(group, name,
                 save_cfg=False)
     t.restore_weights()
     leaky_loss, _ = t._loss_and_grads(*group["batch"])
-    monkeypatch.setattr(activation, "leaky_relu", activation.smooth)
+    monkeypatch.setattr(activation, "bias_leaky_relu",
+                        activation.bias_smooth)
     loss, grads = t._loss_and_grads(*group["batch"])
     # live: the losses differ by far more than the 1e-6 held below
     assert abs(loss - leaky_loss) > 1e-4 * abs(leaky_loss), (loss,
