@@ -764,7 +764,8 @@ class Trainer:
         """``block(step)`` -> the host inputs of the chunk of ``k`` updates
         after ``step`` updates (:meth:`graph.StepGraph.fill`), this rank's
         rows of each: :meth:`_step_rows`, and the cache's indices
-        (``"idx"``) or the next ``k`` host batches (``"x"``, ``"y"``)."""
+        (``"idx"``) or the next ``k`` host batches (``"x"``, ``"y"``),
+        each taken from the stream inside a ``train.next_batch`` span."""
         c, lay = self.c, self.layout
         cache = c.device_data_cache and c.arch != "nn"
         it = None if cache else self._host_batches(num_steps, start)
@@ -779,7 +780,11 @@ class Trainer:
                         self._cache_indices(step + 1, k).astype(np.int64),
                         lay.batch, 1, self.pair_mode)
                 else:
-                    rows = [self.local_batch(*next(it)) for _ in range(k)]
+                    rows = []
+                    for _ in range(k):
+                        with spans.span("train.next_batch"):
+                            batch = next(it)
+                        rows.append(self.local_batch(*batch))
                     out["x"] = [x for x, _ in rows]
                     out["y"] = [y for _, y in rows]
             return out

@@ -8,6 +8,7 @@ conftest (which configures jax) is left out:
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -1111,6 +1112,44 @@ def test_batch_512_forward_runs_without_layout_transposes(cuda_device,
         names = _kernel_rows(lambda: model(z), tmp_path, "forward")
     assert layers.layout_counts == {"channels_last": 21, "other": 0}
     assert _transposes(names) == 1          # conv_out's output, as above
+
+
+# One autoencoder step of config #4 (128 x 96, 128 filters, 4 convs a stage,
+# 5 stages, z_num 16, bf16, batch 8, the device cache), as the card showed
+# it: all 46 conv calls of a forward take a channels-last map (the encoder's
+# 25 too: its NHWC field permuted, and the F.pad before each stride-2 down
+# keeps the layout; its weights stay contiguous), and of the device rows the
+# benchmark's ``layout_transpose`` group takes
+# (``nchwToNhwc|nhwcToNchw|transpose``) a step runs the decoder's conv_out
+# three, as the 2D generator does (ONE_CHANNEL_TRANSPOSES): the encoder adds
+# none.
+AE_STEP_LAYOUTS = {"channels_last": 46, "other": 0}
+AE_STEP_TRANSPOSES = 3
+_TRANSPOSE_ROW = re.compile(r"nchwToNhwc|nhwcToNchw|transpose")
+
+
+@pytest.mark.cuda
+def test_ae_graph_step_layouts(cuda_device, tmp_path):
+    # One train() call of the graph step (the eager warm-up step, the
+    # capture, two replays), profiled: the layouts are counted in the
+    # warm-up and at the capture, the transposes run in every step; the
+    # replays stay bit-equal to the body run eagerly.
+    from deepfluids_tpu_torch.parallel import layers
+
+    cfg = Config(arch="ae", z_num=16,
+                 data_dir=_field_set(tmp_path, "mov", (128, 96), 8),
+                 dataset="mov", num_worker=1, log_dir=str(tmp_path),
+                 device_data_cache=True)
+    g, e = _graph_pair(cfg, cuda_device, 1)
+    layers.layout_counts.update(channels_last=0, other=0)
+    names = _kernel_rows(lambda: g.train(num_steps=3), tmp_path, "ae_step")
+    assert g._chunks.graph is not None and g._chunks.replays == 2
+    assert layers.layout_counts == {k: 2 * v
+                                    for k, v in AE_STEP_LAYOUTS.items()}
+    rows = [n for n in names if _TRANSPOSE_ROW.search(n)]
+    assert len(rows) == 3 * AE_STEP_TRANSPOSES, sorted(set(rows))
+    e.train(num_steps=3)
+    _same_state(g, e)
 
 
 # --- the conv stack's epilogue: bias add + leaky ReLU in one pass ----------

@@ -125,7 +125,7 @@ def _chunked(root: str, tag: str, **kw) -> Trainer:
                filters=8, num_conv=1, z_num=8, batch_size=2, max_step=10,
                lr_max=2e-3, lr_min=1e-4, log_step=2, test_step=10_000,
                save_step=4, compute_dtype="float32", num_worker=1, seed=3,
-               device_data_cache=True, **kw)
+               **{"device_data_cache": True, **kw})
     return Trainer(c, device="cpu")
 
 
@@ -147,6 +147,25 @@ def test_the_chunked_trainer_traces_its_feed(tmp_path):
     assert names == ["train.block", "train.fill", "train.replay"] * 4
     # each is its own phase: none holds another
     assert not any(_inside(b, a) for a, b in zip(rows, rows[1:]))
+
+
+@pytest.mark.parametrize("cache", [False, True], ids=["stream", "cache"])
+def test_next_batch_spans_each_streamed_batch(tmp_path, cache):
+    # the native stream's batches are taken one a span, at one step a
+    # chunk and at three; the device cache takes none
+    t = _chunked(_dataset(str(tmp_path)), "n", device_data_cache=cache)
+    path = str(tmp_path / "t.json")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t.train(num_steps=2)
+        t.c.steps_per_call = 3
+        t.train(num_steps=6)
+    prof.export_chrome_trace(path)
+    rows = _annotations(path, {"train.block", "train.next_batch"})
+    names = [e["name"] for e in rows]
+    assert names.count("train.block") == 4
+    assert names.count("train.next_batch") == (0 if cache else 8)
+    blocks = [e for e in rows if e["name"] == "train.block"]
+    assert all(any(_inside(e, b) for b in blocks) for e in rows)
 
 
 def test_metrics_rows_hold_the_host_seconds_of_each_span(tmp_path):
